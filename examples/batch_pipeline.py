@@ -1,7 +1,7 @@
 """Batch-process a manifest of clips through the full chain.
 
 Builds a few synthetic clips, writes a manifest, and runs the bucketed
-ragged batch runner (decode thread -> SPSC ring -> TPU dispatch ->
+ragged batch runner (decode thread -> SPSC ring -> device dispatch ->
 writer thread) with resume markers and per-clip failure isolation:
 
     python examples/batch_pipeline.py /tmp/xmtpu_demo

@@ -2,8 +2,8 @@
 
 The reference library's deployment shape is many independent
 ``xm_audio_utils`` handles in one process; ``SessionPool`` batches K of
-them into a single vmapped TPU program — sessions fill the VPU lanes
-the way the batch pipeline fills them with clips.
+them into a single vmapped device program — sessions fill the device
+the way the batch pipeline fills it with clips.
 
     python examples/serving_pool.py
 """

@@ -1,25 +1,24 @@
 """Compile-structure regression tests: pin the TRACED program shape of
-the production chain so perf-critical regressions are catchable on CPU,
-without the chip.
+the chains so engine-selection regressions are catchable on CPU,
+without the card.
 
-Parity tests prove the math; nothing before this file proved the
-*engine selection*. A regression that silently flips the headline chain
-off its Pallas kernels (e.g. a backend-policy change, a dtype promotion
-that re-routes an op, a lost ``precision=HIGH``) passes every -80 dB
-gate and only shows up as a silent multi-x slowdown in the next chip
-bench. These tests trace ``batch.make_flagship_step`` with
-``jax.make_jaxpr`` (no compile, backend-agnostic) and assert the
-structural facts the round-3 XProf profile established:
+Parity tests prove the math; nothing else proves the *engine
+selection*. A regression that silently flips the headline chain off its
+engine (a policy change, a dtype promotion that re-routes an op, a
+matrix product left at the GPU's TF32 default) can pass every -80 dB
+gate on the CPU and only show up on the card. These tests trace
+``batch.make_flagship_step`` and the public chain with
+``jax.make_jaxpr`` (no compile, backend-agnostic) and assert:
 
-- the LTI-fold headline path runs EXACTLY two opaque Pallas stages
-  (kernels/fftconv.py reverb+EQ and kernels/envelope.py limiter);
-- float64 appears ONLY in the (n,)-sized fade-ramp index math
-  (ops/mix.py — f64 indices keep >2^24-sample ramps exact); any
-  batch-shaped f64 intermediate is a promotion bug (2x HBM traffic);
-- every top-level f32 matmul carries precision HIGH or HIGHEST (the
-  default bf16 MXU pass costs ~90 dB — CLAUDE.md, BASELINE.md);
-- no unexpected scatter growth (scatters bypass the MXU and cost
-  gather-grade HBM traffic).
+- the card's engine runs the EQ inside the reverb's FFT convolution (LTI
+  fold) and the limiter as the envelope kernel: every top-level
+  ``pallas_call`` is that kernel — one pass unsegmented, three when the
+  rows split into time segments;
+- float64 appears ONLY in (n,)-sized index math on that engine; a
+  batch-shaped f64 intermediate is a promotion bug (2x the bytes);
+- every top-level f32 matrix product names precision HIGHEST (HIGH and
+  DEFAULT are TF32 on the GPU, which spends the -80 dB budget);
+- the XLA engine runs no Pallas kernel at all.
 """
 
 from __future__ import annotations
@@ -28,6 +27,7 @@ import jax
 import jax.numpy as jnp
 
 from xmtpu import batch as xbatch
+from xmtpu.kernels.envelope import pick_segments
 
 B_HEAD, N_IN, SR_IN, SR_BUS = 256, 44100, 44100, 16000
 
@@ -35,8 +35,7 @@ B_HEAD, N_IN, SR_IN, SR_BUS = 256, 44100, 44100, 16000
 def _walk(jaxpr, in_pallas=False, out=None):
     """Flatten eqns of ``jaxpr`` and every sub-jaxpr (jit/cond/while/
     pallas bodies), tagging each with whether it sits inside a
-    pallas_call (in-kernel dots are bf16-split by design and must not
-    be held to the top-level precision rule)."""
+    pallas_call."""
     if out is None:
         out = []
     for e in jaxpr.eqns:
@@ -59,17 +58,26 @@ def _trace(batch, **kw):
     return jx, _walk(jx.jaxpr)
 
 
-def test_headline_chain_structure():
-    """The production (pallas, batch>=128, LTI-fold) chain: exactly two
-    opaque Pallas stages, disciplined dtypes/precision."""
-    jx, eqns = _trace(B_HEAD, iir_backend="pallas")
+def _top_pallas(eqns):
+    return [e for e, p in eqns if e.primitive.name == "pallas_call" and not p]
 
-    top_pallas = [e for e, p in eqns
-                  if e.primitive.name == "pallas_call" and not p]
-    assert len(top_pallas) == 2, (
-        f"headline chain must run exactly 2 Pallas stages (fftconv "
-        f"reverb+EQ fold, limiter envelope), traced "
-        f"{len(top_pallas)} — engine selection regressed")
+
+def _kernel_names(calls):
+    return {str(e.params.get("name", "")) for e in calls}
+
+
+def test_headline_chain_structure():
+    """The card's engine at the headline batch: only envelope-kernel
+    passes, disciplined dtypes and precision."""
+    jx, eqns = _trace(B_HEAD, engine="gpu_interpret")
+
+    calls = _top_pallas(eqns)
+    n_bus = N_IN * SR_BUS // SR_IN
+    want = 3 if pick_segments(B_HEAD, n_bus) > 1 else 1
+    assert len(calls) == want, (
+        f"headline chain must run {want} envelope-kernel passes, traced "
+        f"{len(calls)} — engine selection regressed")
+    assert all(nm.startswith("xm_envelope") for nm in _kernel_names(calls))
 
     for e, _ in eqns:
         for var in e.outvars:
@@ -78,42 +86,31 @@ def test_headline_chain_structure():
             if dt is not None and str(dt) == "float64":
                 assert len(aval.shape) <= 1, (
                     f"batch-shaped float64 intermediate "
-                    f"{e.primitive.name} -> {aval.shape}: f64 belongs "
-                    f"ONLY to the 1-D fade-ramp index math")
+                    f"{e.primitive.name} -> {aval.shape}")
 
-    lax_hi = (jax.lax.Precision.HIGH, jax.lax.Precision.HIGHEST)
     for e, in_pal in eqns:
         if e.primitive.name != "dot_general" or in_pal:
             continue
         in_dts = {str(v.aval.dtype) for v in e.invars}
         if in_dts == {"float32"}:
             prec = e.params.get("precision")
-            assert prec and all(p in lax_hi for p in prec), (
+            assert prec and all(p == jax.lax.Precision.HIGHEST
+                                for p in prec), (
                 f"top-level f32 dot {tuple(v.aval.shape for v in e.invars)}"
-                f" has precision={prec}; DSP dots need >=HIGH "
-                f"(default bf16 costs ~90 dB)")
-
-    scatters = [e for e, p in eqns if "scatter" in e.primitive.name]
-    assert len(scatters) <= 2, (
-        f"{len(scatters)} scatter ops (was 2: framed-resample edge "
-        f"correction) — scatters bypass the MXU; check what grew")
+                f" has precision={prec}; the GPU runs anything below "
+                f"HIGHEST as TF32")
 
     out_aval = jx.jaxpr.outvars[0].aval
     assert str(out_aval.dtype) == "int16"
-    assert out_aval.shape == (B_HEAD, N_IN * SR_BUS // SR_IN)
+    assert out_aval.shape == (B_HEAD, n_bus)
 
 
 def test_small_batch_keeps_segmented_kernels():
-    """batch < 128 lanes: the auto policy must stay on the SEGMENTED
-    Pallas kernels (time-segmentation fills the lanes), not fall back
-    to scans — the fallback passes parity but is compile-hostile at
-    long n (CLAUDE.md: unrolled scan HLOs stall the remote compiler)."""
-    _, eqns = _trace(32, iir_backend="pallas")
-    top_pallas = [e for e, p in eqns
-                  if e.primitive.name == "pallas_call" and not p]
-    assert len(top_pallas) >= 3, (
-        f"small-batch path traced only {len(top_pallas)} Pallas stages;"
-        f" segmented IIR/envelope kernels appear to have fallen off")
+    """A small batch must split its rows into time segments (3 kernel
+    passes) so the card fills, not fall back to one pass per row."""
+    assert pick_segments(32, N_IN * SR_BUS // SR_IN) > 1
+    _, eqns = _trace(32, engine="gpu_interpret")
+    assert len(_top_pallas(eqns)) == 3
 
 
 _PUBLIC_CHAIN = [
@@ -127,7 +124,7 @@ _PUBLIC_CHAIN = [
 ]
 
 
-def _trace_public(backend):
+def _trace_public(backend, states=True):
     from functools import partial
 
     from xmtpu.graph import fx
@@ -135,74 +132,33 @@ def _trace_public(backend):
     effects = fx.build_chain(16000, _PUBLIC_CHAIN,
                              default_backend=backend)
     x = jnp.zeros((128, 1, 160000), jnp.float32)
-    states = [e.init_state(x.shape[:-1]) for e in effects]
-    jx = jax.make_jaxpr(partial(fx.chain_apply, effects))(x, states)
+    st = ([e.init_state(x.shape[:-1]) for e in effects] if states
+          else tuple(None for _ in effects))
+    jx = jax.make_jaxpr(partial(fx.chain_apply, effects))(x, st)
     return effects, _walk(jx.jaxpr)
 
 
 def test_public_chain_runs_production_engine():
-    """The round-2 judge's top weak item was 'the public API does not
-    run the fast engine'. Pin the round-3 fix structurally: on the
-    production backend the public chain LTI-folds EQ into the reverb
-    (FusedLTIFx) and traces to exactly 3 Pallas stages (fftconv
-    reverb with input-history carry + limiter envelope)."""
-    effects, eqns = _trace_public("pallas")
+    """On the card's engine the public chain LTI-folds EQ into the
+    reverb (FusedLTIFx) and runs the limiter as the envelope kernel."""
+    effects, eqns = _trace_public("gpu_interpret")
     assert [type(e).__name__ for e in effects] == \
-        ["ConvLimiterFx"], (
+        ["FusedLTIFx", "LimiterFx"], (
             f"LTI fold regressed: {[type(e).__name__ for e in effects]}")
-    top_pallas = sum(1 for e, p in eqns
-                     if e.primitive.name == "pallas_call" and not p)
-    assert top_pallas == 3, (
-        f"public chain traced {top_pallas} Pallas stages, expected 3 "
-        f"— the public entry point fell off the production kernels")
+    calls = _top_pallas(eqns)
+    assert len(calls) in (1, 3), len(calls)
+    assert all(nm.startswith("xm_envelope") for nm in _kernel_names(calls))
 
 
 def test_public_chain_stateless_path_keeps_padded_handoff():
-    """The round-4 whole-clip change is the STATELESS (None states)
-    path: ConvLimiterFx hands the fftconv's hop-padded trim=False
-    output straight to limiter(n_valid=) so no standalone trim copy
-    runs between the stages. Pinned two ways: (a) the stateless trace
-    still emits exactly 3 top-level Pallas stages (the fused pair did
-    not fall apart into extra kernel calls), and (b) the handoff args
-    themselves — trim=False at the conv, n_valid=n at the limiter —
-    captured by instrumenting the two callees (a jaxpr slice count
-    cannot tell a fused lazy slice from a materialized trim copy)."""
-    from functools import partial
-    from unittest import mock
-
-    from xmtpu.graph import fx as fxmod
-    from xmtpu.kernels import fftconv as fcmod
-    from xmtpu.ops import limiter as limmod
-
-    effects = fxmod.build_chain(16000, _PUBLIC_CHAIN,
-                                default_backend="pallas")
-    assert [type(e).__name__ for e in effects] == ["ConvLimiterFx"]
-    x = jnp.zeros((128, 1, 160000), jnp.float32)
-    jx = jax.make_jaxpr(partial(fxmod.chain_apply, effects))(
-        x, tuple(None for _ in effects))
-    top_pallas = sum(1 for e, p in _walk(jx.jaxpr)
-                     if e.primitive.name == "pallas_call" and not p)
-    assert top_pallas == 3, (
-        f"stateless public chain traced {top_pallas} Pallas stages, "
-        f"expected 3")
-
-    calls = {}
-    real_conv, real_lim = fcmod.fir_convolve_os_pallas, limmod.limiter
-
-    def spy_conv(*a, **kw):
-        calls["trim"] = kw.get("trim", True)
-        return real_conv(*a, **kw)
-
-    def spy_lim(*a, **kw):
-        calls["n_valid"] = kw.get("n_valid")
-        return real_lim(*a, **kw)
-
-    with mock.patch.object(fcmod, "fir_convolve_os_pallas", spy_conv), \
-            mock.patch.object(limmod, "limiter", spy_lim):
-        jax.make_jaxpr(partial(fxmod.chain_apply, effects))(
-            x, tuple(None for _ in effects))
-    assert calls.get("trim") is False, calls
-    assert calls.get("n_valid") == x.shape[-1], calls
+    """The whole-clip (None states) path of the card's engine runs the
+    same stages as the stateful one: the FFT reverb with no tail carry
+    and the envelope kernel, with no EQ recurrence left."""
+    effects, eqns = _trace_public("gpu_interpret", states=False)
+    assert [type(e).__name__ for e in effects] == ["FusedLTIFx", "LimiterFx"]
+    names = {e.primitive.name for e, p in eqns if not p}
+    assert "pallas_call" in names
+    assert not any(n.startswith("cum") for n in names), names
 
 
 def test_public_chain_scan_backend_is_kernel_free():
@@ -211,20 +167,11 @@ def test_public_chain_scan_backend_is_kernel_free():
     effects, eqns = _trace_public("scan")
     assert [type(e).__name__ for e in effects] == \
         ["EqualizerFx", "ReverbFx", "LimiterFx"]
-    top_pallas = sum(1 for e, p in eqns
-                     if e.primitive.name == "pallas_call" and not p)
-    assert top_pallas == 0
+    assert not _top_pallas(eqns)
 
 
 def test_scan_backend_has_no_sequential_pallas():
-    """iir_backend='scan' is the oracle-grade path: the sequential
-    EQ/limiter must NOT silently route into Pallas kernels (the scan
-    path is what CPU/streaming correctness arguments lean on). The
-    reverb stays on its production backend by design — so the pinned
-    count is exactly 1 (fftconv), not 0."""
-    _, eqns = _trace(B_HEAD, iir_backend="scan")
-    top_pallas = [e for e, p in eqns
-                  if e.primitive.name == "pallas_call" and not p]
-    assert len(top_pallas) == 1, (
-        f"scan backend traced {len(top_pallas)} Pallas stages, "
-        f"expected exactly 1 (the fftconv reverb)")
+    """The XLA engine's headline chain runs no Pallas kernel: the EQ and
+    limiter are the f64 scans, the reverb the XLA FFT convolution."""
+    _, eqns = _trace(B_HEAD, engine="xla")
+    assert not _top_pallas(eqns)

@@ -1,8 +1,11 @@
-"""Pallas kernel tests — interpret mode everywhere (TPU-optional CI,
-SURVEY.md §4.2), plus one compiled smoke test when a real TPU is up.
+"""The limiter envelope kernel (Pallas, Triton route) and the engine
+policy.
 
-Each kernel is gated on matching its pure-JAX ops twin (the oracle) —
-the M4 acceptance rule from SURVEY.md §7.2.
+On the CPU the kernel runs in Pallas interpret mode, checked against
+the float64 numpy oracle (``ops.limiter.limiter_np``) and the f64 scan
+twins; its CUDA lowering is checked through ``jax.export`` with no card.
+Tests marked ``chip`` run the compiled kernel on the card
+(``python chip_smoke.py``) and skip elsewhere.
 """
 
 from __future__ import annotations
@@ -11,640 +14,344 @@ import numpy as np
 import pytest
 import jax
 import jax.numpy as jnp
-from scipy import signal as sps
 
 import xmtpu  # noqa: F401
-from xmtpu.kernels.iir import sosfilt_pallas
-from xmtpu.ops import biquad
+from xmtpu import engine as E
+from xmtpu.kernels import envelope as K
+from xmtpu.ops import limiter as L
+from xmtpu.utils.errors import ConfigError
 
 from .conftest import rms_db
 
-SR = 48000
-BANDS = [
-    {"freq_hz": 100.0, "gain_db": 4.0, "q": 1.0},
-    {"freq_hz": 400.0, "gain_db": -3.0, "q": 1.2},
-    {"freq_hz": 1000.0, "gain_db": 2.5, "q": 0.9},
-    {"freq_hz": 4000.0, "gain_db": -2.0, "q": 1.1},
-    {"freq_hz": 12000.0, "gain_db": 3.0, "q": 0.8},
-]
+SR = 16000
+K_REL = L._release_coeff(80.0, SR)
+C_ATT = L._attack_coeff(1.0, SR)
 
 
-def _on_tpu() -> bool:
-    d = jax.devices()[0]
-    return "tpu" in (d.device_kind + d.platform).lower()
+def _signal(rng, shape, loud=0.9):
+    x = (loud * rng.standard_normal(shape)).astype(np.float32)
+    x[..., 100:300] *= 4.0  # drive the knee and the ceiling clamp
+    return x
 
 
-@pytest.fixture(scope="module")
-def sos():
-    return biquad.eq_sos(BANDS, SR)
+def _state(rng, b):
+    return (np.abs(rng.standard_normal(b)).astype(np.float32),
+            np.abs(rng.standard_normal(b)).astype(np.float32))
 
 
-def test_iir_kernel_matches_oracle_batched(sos, rng):
-    x = (0.3 * rng.standard_normal((3, 9000))).astype(np.float32)
-    ref = sps.sosfilt(sos, x.astype(np.float64), axis=-1)
-    y, _ = sosfilt_pallas(sos, jnp.asarray(x), interpret=True, time_chunk=1024)
-    db = rms_db(np.asarray(y, np.float64) - ref, ref)
-    assert db <= -80.0, db  # sequential f32 floor ~-86 dB (SURVEY.md §7.4②)
-
-
-def test_iir_kernel_state_carry_exact(sos, rng):
-    """Blockwise output with carried zi must equal the one-shot run
-    bit-for-bit (same f32 sequence of operations; segments=1 pins the
-    unsegmented path — auto-segmentation reorders f32 arithmetic and
-    is gated at -80 dB instead, below)."""
-    x = (0.3 * rng.standard_normal((3, 8192))).astype(np.float32)
-    y_full, _ = sosfilt_pallas(sos, jnp.asarray(x), interpret=True,
-                               time_chunk=1024, segments=1)
-    y1, z1 = sosfilt_pallas(sos, jnp.asarray(x[:, :4096]), interpret=True,
-                            time_chunk=1024, segments=1)
-    y2, _ = sosfilt_pallas(sos, jnp.asarray(x[:, 4096:]), zi=z1,
-                           interpret=True, time_chunk=1024, segments=1)
-    ycat = np.concatenate([np.asarray(y1), np.asarray(y2)], axis=-1)
-    np.testing.assert_array_equal(ycat, np.asarray(y_full))
-    # the auto (possibly segmented) one-shot run agrees within tolerance
-    y_auto, _ = sosfilt_pallas(sos, jnp.asarray(x), interpret=True,
-                               time_chunk=1024)
-    ref = np.asarray(y_full, np.float64)
-    assert rms_db(np.asarray(y_auto, np.float64) - ref, ref) <= -80.0
-
-
-def test_iir_kernel_ragged_tail(sos, rng):
-    """n not a multiple of time_chunk: padded tail must not advance state."""
-    n = 3000  # 1024*2 + 952
-    x = (0.3 * rng.standard_normal((2, n))).astype(np.float32)
-    y, zf = sosfilt_pallas(sos, jnp.asarray(x), interpret=True, time_chunk=1024)
-    ref, zf_ref = biquad.sosfilt_np(sos, x.astype(np.float64))
+@pytest.mark.parametrize("B,ch,n,segments,carry,curve", [
+    (3, 1, 1003, None, False, "limit"),   # ragged n, auto segments
+    (2, 1, 4096, 8, True, "limit"),       # segmented mono, carried state
+    (2, 2, 4096, 16, True, "limit"),      # linked stereo (gain mode)
+    (1, 2, 3000, 3, True, "limit"),       # non-power-of-two segments
+    (5, 1, 777, 1, False, "comp"),        # compressor curve, one pass
+    (2, 2, 2048, 4, True, "comp"),        # compressor, segmented stereo
+    (1, 1, 10, None, True, "limit"),      # n shorter than one unroll step
+    (33, 1, 512, 2, False, "limit"),      # lanes padded to the block
+])
+def test_limiter_kernel_matches_oracle(rng, B, ch, n, segments, carry, curve):
+    """Output and final states vs the f64 oracle over rows, ragged n,
+    segments, carried state and both curves (-80 dB gate)."""
+    x = _signal(rng, (B, ch, n))
+    init = _state(rng, B) if carry else (0.0, 0.0)
+    kw = dict(threshold_db=-6.0)
+    if curve == "comp":
+        kw.update(threshold_db=-10.0, ratio=4.0, makeup_db=2.0)
+    ref, (er, sr_) = L.limiter_np(x, SR, release_ms=80.0, state=init, **kw)
+    y, (el, sl) = K.limiter_kernel(
+        jnp.asarray(x), K_REL, C_ATT, init=init if carry else None,
+        segments=segments, interpret=True, **kw)
+    assert y.shape == x.shape
     assert rms_db(np.asarray(y, np.float64) - ref, ref) <= -80.0
-    np.testing.assert_allclose(np.asarray(zf), zf_ref, atol=1e-4)  # f32 drift
+    assert rms_db(np.asarray(el, np.float64) - er, er) <= -80.0
+    assert rms_db(np.asarray(sl, np.float64) - sr_, sr_) <= -80.0
+    # the ceiling clamp holds exactly
+    assert np.max(np.abs(np.asarray(y))) <= 1.0 + 1e-6
 
 
-def test_iir_kernel_matches_scan_twin_layout(sos, rng):
-    """Kernel and ops twin agree on (y, zf) shapes/layout for 1-D and 2-D."""
-    for shape in ((4000,), (2, 4000)):
-        x = (0.3 * rng.standard_normal(shape)).astype(np.float32)
-        y_k, zf_k = sosfilt_pallas(sos, jnp.asarray(x), interpret=True)
-        y_s, zf_s = biquad.sosfilt_scan(sos, jnp.asarray(x))
-        assert y_k.shape == y_s.shape
-        assert zf_k.shape == zf_s.shape
-        assert rms_db(np.asarray(y_k, np.float64) - np.asarray(y_s, np.float64),
-                      np.asarray(y_s, np.float64)) <= -80.0
+@pytest.mark.parametrize("R,n,segments,carry", [
+    (2, 2048, None, False), (3, 1500, 5, True), (1, 4096, 1, True),
+    (4, 640, 2, False)])
+def test_envelope_kernel_matches_scans(rng, R, n, segments, carry):
+    """The kernel's gain pass vs the f64 associative scans. With the
+    threshold far below the signal every sample is limited, so the gain
+    is threshold / envelope and carries the envelope's error 1:1."""
+    d = np.abs(rng.standard_normal((R, n))).astype(np.float32) * 1.5
+    init = _state(rng, R) if carry else (np.zeros(R), np.zeros(R))
+    env, _ = L.decaying_max_scan(jnp.asarray(d, jnp.float64), K_REL,
+                                 jnp.asarray(init[0], jnp.float64))
+    e2, _ = L.onepole_scan(env, C_ATT, jnp.asarray(init[1], jnp.float64))
+    e2 = np.asarray(e2)
+    ref = 10.0 ** (np.asarray(L.soft_knee_gain_db(
+        20.0 * np.log10(e2), -60.0, 6.0)) / 20.0)
+    g, (el, sl) = K._rows(
+        jnp.asarray(d), jnp.asarray(np.stack(init), jnp.float32), K_REL,
+        C_ATT, absdet=False, emit="gain", curve=(-60.0, 6.0, 0.0, 1.0, 0.0),
+        segments=segments, interpret=True)
+    assert rms_db(np.asarray(g, np.float64) - ref, ref) <= -100.0
+    np.testing.assert_allclose(np.asarray(sl), e2[:, -1], rtol=1e-5)
 
 
-@pytest.mark.skipif(not _on_tpu(), reason="needs a real TPU")
-def test_iir_kernel_compiled_on_tpu(sos, rng):
-    x = (0.3 * rng.standard_normal((8, 4800))).astype(np.float32)
-    ref = sps.sosfilt(sos, x.astype(np.float64), axis=-1)
-    y, _ = sosfilt_pallas(sos, jnp.asarray(x), time_chunk=1024)
-    db = rms_db(np.asarray(y, np.float64) - ref, ref)
-    assert db <= -80.0, db
-
-
-# --- Pallas resample kernel (SURVEY §2.3 strided-conv row) -------------------
-
-
-def test_iir_kernel_segmented_exact(sos, rng):
-    """Small-batch time segmentation (lane-filling + exact affine state
-    corrections, the in-chip twin of parallel/sp.py) must equal the
-    unsegmented kernel and the f64 oracle, including the final state
-    and a nonzero incoming state."""
-    from xmtpu.kernels.iir import pick_segments
-
-    n = 32768
-    x = (0.4 * rng.standard_normal((2, n))).astype(np.float32)
-    assert pick_segments(2, n) > 1  # the auto path really segments here
-    y_seg, zf_seg = sosfilt_pallas(sos, jnp.asarray(x), interpret=True)
-    y_pl, zf_pl = sosfilt_pallas(sos, jnp.asarray(x), interpret=True,
-                                 segments=1)
-    ref = sps.sosfilt(sos, x.astype(np.float64), axis=-1)
-    assert rms_db(np.asarray(y_seg, np.float64) - ref, ref) <= -80.0
-    # kernel-vs-kernel gates are -75: the UNSEGMENTED f32 kernel's own
-    # error vs the f64 oracle is ~-80 dB at this n (one long f32
-    # recurrence; the segmented kernel measures ~-95 — shorter f32
-    # chains per segment), so a two-kernel delta inherently hovers at
-    # -80 and flaked on some shared-rng draws (-79.8 observed)
-    assert rms_db(np.asarray(y_seg, np.float64)
-                  - np.asarray(y_pl, np.float64),
-                  np.asarray(y_pl, np.float64)) <= -75.0
-    np.testing.assert_allclose(np.asarray(zf_seg), np.asarray(zf_pl),
-                               atol=1e-4)
-    zi = (0.1 * rng.standard_normal((5, 2, 2))).astype(np.float32)
-    ys, _ = sosfilt_pallas(sos, jnp.asarray(x), zi=jnp.asarray(zi),
-                           interpret=True)
-    yp, _ = sosfilt_pallas(sos, jnp.asarray(x), zi=jnp.asarray(zi),
-                           interpret=True, segments=1)
-    ref_zi = np.stack([
-        sps.sosfilt(np.asarray(sos, np.float64), x[b].astype(np.float64),
-                    zi=np.asarray(zi, np.float64)[:, b, :])[0]
-        for b in range(x.shape[0])])
-    assert rms_db(np.asarray(ys, np.float64) - ref_zi, ref_zi) <= -80.0
-    assert rms_db(np.asarray(ys, np.float64) - np.asarray(yp, np.float64),
-                  np.asarray(yp, np.float64)) <= -75.0
-
-
-def test_envelope_kernel_segmented_exact(rng):
-    """Segmented limiter envelope (max-plus + one-pole affine chains
-    across lane segments) == unsegmented kernel == f64 scans."""
-    from xmtpu.kernels.envelope import envelope_pallas
-    from xmtpu.ops import limiter as L
-
-    n = 32768
-    d = np.abs(rng.standard_normal((2, n))).astype(np.float64) * 1.5
-    k_rel = L._release_coeff(100.0, SR)
-    c_att = L._attack_coeff(1.0, SR)
-    e_seg, zf_seg = envelope_pallas(jnp.asarray(d), k_rel, c_att,
-                                    interpret=True)
-    e_pl, zf_pl = envelope_pallas(jnp.asarray(d), k_rel, c_att,
-                                  interpret=True, segments=1)
-    env_ref, _ = L.decaying_max_scan(jnp.asarray(d), k_rel,
-                                     jnp.zeros((2,), jnp.float64))
-    e2_ref, _ = L.onepole_scan(env_ref, c_att, jnp.zeros((2,), jnp.float64))
-    ref = np.asarray(e2_ref, np.float64)
-    assert rms_db(np.asarray(e_seg, np.float64) - ref, ref) <= -100.0
-    assert rms_db(np.asarray(e_seg, np.float64)
-                  - np.asarray(e_pl, np.float64), ref) <= -100.0
-    for a, b in zip(zf_seg, zf_pl):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5)
-
-
-def test_pick_segments_alignment_mode_is_opt_in():
-    """Round-5 chip story (pinned so nobody re-flips it blind): a
-    misaligned segment split relayouts at ~5x roofline and the
-    128-aligned non-power-of-2 divisor wins STANDALONE (1.463 vs
-    1.89 ms) — but loses IN-CHAIN (config 3: 36.5-38.6k vs 41.7-42.6k
-    controls), so the AUTO policy stays power-of-2 and `aligned=True`
-    is the probe-only mode (see the pick_segments docstring)."""
-    from xmtpu.kernels.iir import pick_segments
-
-    # default (production) policy: power-of-2, alignment-blind
-    assert pick_segments(16, 480000, lanes=256) == 16
-    # probe mode: the largest 128-aligned divisor within the budget
-    assert pick_segments(16, 480000, lanes=256, aligned=True) == 15
-    # pow2-aligned shapes identical in both modes
-    for al in (False, True):
-        assert pick_segments(2, 32768, lanes=256, aligned=al) == 8
-    # no aligned divisor (odd n): pow2 logic result stands
-    assert pick_segments(2, 3**9, lanes=256, aligned=True) == 1
-    # whatever either mode picks must divide n exactly
-    for al in (False, True):
-        s = pick_segments(16, 4 * 37 * 128 * 25, lanes=256, aligned=al)
-        assert (4 * 37 * 128 * 25) % s == 0
-
-
-def test_linked_limiter_matches_oracle(rng):
-    """linked_limiter_pallas (round-5 fused stereo limiter: in-kernel
-    soft-knee gain via curve_mode="gain", segmented pass B on an EXACT
-    decay-window-dot init) vs the f64 numpy oracle — segmented,
-    non-segmented, blocked and per-sample variants."""
-    from xmtpu.kernels.envelope import linked_limiter_pallas
-    from xmtpu.ops import limiter as L
-
-    n = 32768
-    x = (0.5 * rng.standard_normal((2, 2, n))).astype(np.float32)
-    x[0, :, 1000:1200] *= 6.0  # drive the knee and the ceiling clamp
-    k_rel = L._release_coeff(100.0, SR)
-    c_att = L._attack_coeff(1.0, SR)
-    ref, (er, smr) = L.limiter_np(x, SR)
-    for kw in ({}, {"segments": 1}, {"block": 1}, {"block": 16}):
-        y, (el, sl) = linked_limiter_pallas(
-            jnp.asarray(x), k_rel, c_att, -3.0, interpret=True, **kw)
-        db = rms_db(np.asarray(y, np.float64) - ref, ref)
-        assert db <= -80.0, (kw, db)
-        np.testing.assert_allclose(np.asarray(el), er, rtol=1e-4)
-        np.testing.assert_allclose(np.asarray(sl), smr, rtol=1e-4)
-
-
-def test_linked_limiter_streaming_state(rng):
-    """ops.limiter(linked_fuse=True): two state-carried halves match
-    the whole clip (the fused path must return exact carried state)."""
-    from xmtpu.ops import limiter as L
-
-    n = 32768
-    x = (0.5 * rng.standard_normal((1, 2, n))).astype(np.float32)
-    x[0, :, 500:700] *= 6.0
-    yw, _ = L.limiter(jnp.asarray(x), SR, backend="pallas_interpret",
-                      linked_fuse=True)
-    y1, st = L.limiter(jnp.asarray(x[..., :n // 2]), SR,
-                       backend="pallas_interpret", linked_fuse=True)
-    y2, _ = L.limiter(jnp.asarray(x[..., n // 2:]), SR,
-                      backend="pallas_interpret", linked_fuse=True,
-                      state=st)
-    got = np.concatenate([np.asarray(y1), np.asarray(y2)], axis=-1)
-    ref = np.asarray(yw, np.float64)
-    assert rms_db(got.astype(np.float64) - ref, ref) <= -80.0
-
-
-def test_linked_limiter_n_valid_and_compressor_curve(rng):
-    """n_valid slices the padded tail before the detector (parity with
-    the unpadded clip), and a finite ratio + makeup (the compressor
-    curve) matches the oracle through the fused path."""
-    from xmtpu.kernels.envelope import linked_limiter_pallas
-    from xmtpu.ops import limiter as L
-
+@pytest.mark.parametrize("segments", [None, 1])
+def test_limiter_kernel_state_carry(rng, segments):
+    """Two state-carried halves == the whole clip (streaming blocks)."""
     n = 4096
-    x = (0.5 * rng.standard_normal((2, 2, n))).astype(np.float32)
-    xpad = np.concatenate(
-        [x, 9.9 * np.ones((2, 2, 512), np.float32)], axis=-1)
-    k_rel = L._release_coeff(100.0, SR)
-    c_att = L._attack_coeff(1.0, SR)
-    y_ref, _ = linked_limiter_pallas(jnp.asarray(x), k_rel, c_att, -3.0,
-                                     interpret=True)
-    y_pad, _ = linked_limiter_pallas(jnp.asarray(xpad), k_rel, c_att, -3.0,
-                                     interpret=True, n_valid=n)
-    assert y_pad.shape == x.shape
-    np.testing.assert_array_equal(np.asarray(y_ref), np.asarray(y_pad))
-
-    ref, _ = L.limiter_np(x, SR, threshold_db=-10.0, ratio=4.0,
-                          makeup_db=2.0)
-    y, _ = L.limiter(jnp.asarray(x), SR, threshold_db=-10.0, ratio=4.0,
-                     makeup_db=2.0, backend="pallas_interpret",
-                     linked_fuse=True)
-    db = rms_db(np.asarray(y, np.float64) - ref, ref)
-    assert db <= -80.0, db
+    x = _signal(rng, (2, 1, n))
+    kw = dict(segments=segments, interpret=True)
+    yw, stw = K.limiter_kernel(jnp.asarray(x), K_REL, C_ATT, -6.0, **kw)
+    y1, st = K.limiter_kernel(jnp.asarray(x[..., :n // 2]), K_REL, C_ATT,
+                              -6.0, **kw)
+    y2, st2 = K.limiter_kernel(jnp.asarray(x[..., n // 2:]), K_REL, C_ATT,
+                               -6.0, init=st, **kw)
+    got = np.concatenate([np.asarray(y1), np.asarray(y2)], -1)
+    ref = np.asarray(yw, np.float64)
+    assert rms_db(got - ref, ref) <= -100.0
+    np.testing.assert_allclose(np.asarray(st2[1]), np.asarray(stw[1]),
+                               rtol=1e-5)
 
 
-def test_limiter_fx_linked_fuse_param():
-    """The chain surface plumbs linked_fuse through to ops.limiter."""
-    from xmtpu.graph import fx
-
-    effects = fx.build_chain(SR, [
-        {"name": "limiter",
-         "params": {"linked_fuse": True, "backend": "pallas"}}])
-    (lim,) = effects
-    assert lim.kw["linked_fuse"] is True
-    x = jnp.asarray(np.ones((1, 2, 2048), np.float32) * 0.9)
-    y, _ = lim.apply(x, None)
-    assert y.shape == x.shape and np.all(np.isfinite(np.asarray(y)))
-
-
-def test_resample_kernel_matches_ops_twin(rng):
-    from xmtpu.kernels.resample import resample_pallas
-    from xmtpu.ops.resample import polyphase_resample
-
-    x = (0.3 * rng.standard_normal((3, 44100))).astype(np.float32)
-    y = np.asarray(resample_pallas(x, 44100, 16000, interpret=True))
-    ref = np.asarray(polyphase_resample(jnp.asarray(x), 44100, 16000))
-    # same plan/table; accumulation grouping differs (per-slab matmuls)
-    db = rms_db(y.astype(np.float64) - ref.astype(np.float64),
-                ref.astype(np.float64))
-    assert db <= -120.0, db
+@pytest.mark.parametrize("S", [2, 5, 10])
+def test_segmented_equals_unsegmented(rng, S):
+    """The exact cross-segment states reproduce the one-pass recurrence
+    (f32 rounding only)."""
+    x = _signal(rng, (2, 1, 2000))
+    y1, _ = K.limiter_kernel(jnp.asarray(x), K_REL, C_ATT, -6.0,
+                             segments=1, interpret=True)
+    ys, _ = K.limiter_kernel(jnp.asarray(x), K_REL, C_ATT, -6.0,
+                             segments=S, interpret=True)
+    ref = np.asarray(y1, np.float64)
+    assert rms_db(np.asarray(ys, np.float64) - ref, ref) <= -100.0
 
 
-def test_resample_kernel_vs_oracle_multiple_ratios(rng):
-    from xmtpu.kernels.resample import resample_pallas
-    from xmtpu.ops.resample import resample_oracle_np
-
-    x = (0.3 * rng.standard_normal((2, 22050))).astype(np.float32)
-    for sr_in, sr_out in ((44100, 16000), (48000, 16000), (16000, 48000)):
-        y = np.asarray(resample_pallas(x, sr_in, sr_out, interpret=True))
-        ref = resample_oracle_np(x.astype(np.float64), sr_in, sr_out)
-        db = rms_db(y.astype(np.float64) - ref, ref)
-        assert db <= -100.0, (sr_in, sr_out, db)
-
-
-@pytest.mark.skipif(not _on_tpu(), reason="needs a real TPU")
-def test_resample_kernel_compiled_on_tpu(rng):
-    from xmtpu.kernels.resample import resample_pallas
-    from xmtpu.ops.resample import resample_oracle_np
-
-    x = (0.3 * rng.standard_normal((4, 44100))).astype(np.float32)
-    y = np.asarray(resample_pallas(x, 44100, 16000))
-    ref = resample_oracle_np(x.astype(np.float64), 44100, 16000)
-    db = rms_db(y.astype(np.float64) - ref, ref)
-    assert db <= -100.0, db
+@pytest.mark.parametrize("R,n", [
+    (256, 160000), (16, 480000), (1, 44100), (32, 480000), (7, 1009)])
+def test_pick_segments_fills_lanes(R, n):
+    """Segments divide n and respect the lane target and the minimum
+    segment length."""
+    S = K.pick_segments(R, n)
+    assert n % S == 0 and R * S <= max(R, K._LANES_FILL)
+    assert S == 1 or n // S >= K._MIN_SEGLEN
+    if n == 1009:  # prime: no split possible
+        assert S == 1
 
 
-def test_eq_env_fused_matches_kernel_composition(sos, rng):
-    """kernels/eq_env.py (fused cascade + limiter envelope) must equal
-    the sosfilt_pallas -> envelope_pallas composition bit-for-bit (same
-    f32 op sequence) and sit within the sequential-f32 budget of the
-    f64 oracles."""
-    from xmtpu.kernels.eq_env import eq_env_pallas
-    from xmtpu.kernels.envelope import envelope_pallas
-    from xmtpu.ops import limiter as lim
-
-    x = (0.3 * rng.standard_normal((3, 9000))).astype(np.float32)
-    k_rel = lim._release_coeff(100.0, SR)
-    c_att = lim._attack_coeff(1.0, SR)
-    y, e2, zf, (el, sl) = eq_env_pallas(sos, jnp.asarray(x), k_rel, c_att,
-                                        interpret=True, time_chunk=1024)
-    y_ref, zf_ref = sosfilt_pallas(sos, jnp.asarray(x), interpret=True,
-                                   time_chunk=1024, segments=1)
-    # block=1: the fused kernel's in-kernel envelope is the per-sample
-    # recurrence (eq_env predates block lookahead), so the bit-for-bit
-    # composition reference must be too (block=None defaults to 8)
-    e2_ref, (el_r, sl_r) = envelope_pallas(
-        jnp.abs(y_ref), k_rel, c_att, interpret=True, time_chunk=1024,
-        segments=1, block=1)
-    np.testing.assert_array_equal(np.asarray(y), np.asarray(y_ref))
-    np.testing.assert_array_equal(np.asarray(e2), np.asarray(e2_ref))
-    np.testing.assert_array_equal(np.asarray(zf), np.asarray(zf_ref))
-    np.testing.assert_array_equal(np.asarray(el), np.asarray(el_r))
-    np.testing.assert_array_equal(np.asarray(sl), np.asarray(sl_r))
-    # and against the f64 oracles (sequential-f32 floor ~-86 dB)
-    ref_y = sps.sosfilt(sos, x.astype(np.float64), axis=-1)
-    assert rms_db(np.asarray(y, np.float64) - ref_y, ref_y) <= -80.0
-    ref_lim, (env64, sm64) = lim.limiter_np(ref_y[:, None, :], SR)
-    # gate the fused envelope's FINAL STATE directly against the f64
-    # oracle (limiter_np returns final states, not trajectories; sm is
-    # the attack-SMOOTHED envelope the fused kernel's e2 computes —
-    # env is the raw decaying max, ~1%/-40 dB away), not just through
-    # apply_gain_curve's clamp region (review find: the oracle state
-    # was computed and never used; a regression cancelling inside the
-    # gain clamp was invisible)
-    e2_last = np.asarray(e2)[:, -1].astype(np.float64)
-    assert rms_db(e2_last - sm64, sm64 + 1e-12) <= -80.0
-    got = np.asarray(lim.apply_gain_curve(
-        jnp.asarray(y)[:, None, :], jnp.asarray(e2), -3.0))
-    assert rms_db(got.astype(np.float64) - ref_lim, ref_lim) <= -80.0
+def test_segments_must_divide_n(rng):
+    x = _signal(rng, (1, 1, 1000))
+    with pytest.raises(ValueError, match="divide"):
+        K.limiter_kernel(jnp.asarray(x), K_REL, C_ATT, -6.0, segments=3,
+                         interpret=True)
 
 
-def test_eq_env_fused_state_carry(sos, rng):
-    """Blockwise fused kernel with carried (zi, env) state == one-shot."""
-    from xmtpu.kernels.eq_env import eq_env_pallas
-    from xmtpu.ops import limiter as lim
+def _export_cuda(fn, *shapes):
+    from jax import export
 
-    x = (0.3 * rng.standard_normal((2, 8192))).astype(np.float32)
-    k_rel = lim._release_coeff(100.0, SR)
-    c_att = lim._attack_coeff(1.0, SR)
-    y_full, e2_full, _, _ = eq_env_pallas(sos, jnp.asarray(x), k_rel, c_att,
-                                          interpret=True, time_chunk=1024)
-    y1, e1, z1, s1 = eq_env_pallas(sos, jnp.asarray(x[:, :4096]), k_rel,
-                                   c_att, interpret=True, time_chunk=1024)
-    y2, e2_, _, _ = eq_env_pallas(sos, jnp.asarray(x[:, 4096:]), k_rel,
-                                  c_att, zi=z1, env_init=s1,
-                                  interpret=True, time_chunk=1024)
-    np.testing.assert_array_equal(
-        np.asarray(y_full), np.concatenate([y1, y2], axis=-1))
-    np.testing.assert_array_equal(
-        np.asarray(e2_full), np.concatenate([e1, e2_], axis=-1))
+    exp = export.export(
+        jax.jit(fn), platforms=["cuda"],
+        disabled_checks=[export.DisabledSafetyCheck.custom_call(
+            "__gpu$xla.gpu.triton")])(
+        *[jax.ShapeDtypeStruct(s, jnp.float32) for s in shapes])
+    return exp.mlir_module()
 
 
-def test_envelope_block_lookahead_matches_plain(rng):
-    """block=B lookahead == per-sample kernel: exact semiring blocking
-    (max-plus env carry, affine e2 carry + Kogge-Stone prefixes), with
-    carried-in state and a tail that is not a multiple of U*B=8B (the
-    body1 fallback).  f32 rounding only differs in mult association."""
-    from xmtpu.kernels.envelope import envelope_pallas
-    from xmtpu.ops import limiter as L
-
-    n = 4096 + 37  # partial chunk AND partial-B tail
-    d = np.abs(rng.standard_normal((140, n))).astype(np.float32) * 1.4
-    init = (jnp.asarray(np.abs(rng.standard_normal(140)), jnp.float32),
-            jnp.asarray(np.abs(rng.standard_normal(140)), jnp.float32))
-    k_rel = L._release_coeff(80.0, SR)
-    c_att = L._attack_coeff(1.0, SR)
-    e_ref, z_ref = envelope_pallas(jnp.asarray(d), k_rel, c_att, init=init,
-                                   interpret=True, segments=1, block=1)
-    for B in (4, 8, 16):
-        e_blk, z_blk = envelope_pallas(jnp.asarray(d), k_rel, c_att,
-                                       init=init, interpret=True,
-                                       segments=1, block=B)
-        ref = np.asarray(e_ref, np.float64)
-        assert rms_db(np.asarray(e_blk, np.float64) - ref, ref) <= -100.0
-        for a, b in zip(z_blk, z_ref):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       rtol=1e-4, atol=1e-30)
-    with pytest.raises(ValueError, match="power of two"):
-        envelope_pallas(jnp.asarray(d), k_rel, c_att, interpret=True,
-                        segments=1, block=3)
+@pytest.mark.parametrize("emit,absdet", [
+    ("finals", True), ("finals", False), ("gain", False), ("limit", True)])
+def test_kernel_pass_lowers_for_cuda(emit, absdet):
+    """Each kernel pass lowers to a Triton call for CUDA from this host
+    (no card needed), x64 on as in the package."""
+    curve = (-3.0, 6.0, 0.0, 1.0, 0.0)
+    txt = _export_cuda(
+        lambda x, s: K._run(x, s, k_rel=K_REL, c_att=C_ATT, absdet=absdet,
+                            emit=emit, curve=curve, interpret=False),
+        (2500, 64), (2, 64))
+    assert "__gpu$xla.gpu.triton" in txt
 
 
-def test_envelope_block_lookahead_segmented(rng):
-    """block= composes with the segmented path: exercises the blocked
-    kernel's k_rel=0 (pass B) and c_att=1 (pass A) degenerate
-    coefficients plus the inline correction read."""
-    from xmtpu.kernels.envelope import envelope_pallas
-    from xmtpu.ops import limiter as L
+@pytest.mark.parametrize("shape", [(256, 1, 16000), (16, 2, 48000)])
+def test_limiter_kernel_lowers_for_cuda(shape):
+    """The whole segmented limiter (three passes + the cross-segment
+    scans) lowers for CUDA at flagship- and config-3-like shapes."""
+    txt = _export_cuda(
+        lambda x: K.limiter_kernel(x, K_REL, C_ATT, -3.0)[0], shape)
+    assert K.pick_segments(shape[0], shape[-1]) > 1
+    # the two state passes share one compiled kernel
+    assert txt.count("__gpu$xla.gpu.triton") == 2
+    out = "xm_envelope_limit" if shape[1] == 1 else "xm_envelope_gain"
+    assert "xm_envelope_finals" in txt and out in txt
 
-    n = 32768
-    d = np.abs(rng.standard_normal((2, n))).astype(np.float64) * 1.5
-    k_rel = L._release_coeff(100.0, SR)
-    c_att = L._attack_coeff(1.0, SR)
-    e_ref, zf_ref = envelope_pallas(jnp.asarray(d), k_rel, c_att,
-                                    interpret=True, block=1)  # segmented,
-    # per-sample reference (block=None now defaults to 8 — flipped on
-    # the 2026-08-19 chip probe win)
-    e_blk, zf_blk = envelope_pallas(jnp.asarray(d), k_rel, c_att,
-                                    interpret=True, block=8)
-    ref = np.asarray(e_ref, np.float64)
-    assert rms_db(np.asarray(e_blk, np.float64) - ref, ref) <= -100.0
-    for a, b in zip(zf_blk, zf_ref):
+
+@pytest.mark.parametrize("ratio,makeup_db", [(float("inf"), 0.0), (4.0, 2.0)])
+def test_kernel_curve_matches_ops_curve(ratio, makeup_db):
+    """The kernel's soft-knee gain (exp/log in f32) equals the pinned
+    curve of ops.limiter (log10/power in f64) across the knee."""
+    e2 = np.geomspace(1e-4, 4.0, 4001).astype(np.float32)
+    curve = (-6.0, 6.0, 0.0, L._knee_slope(ratio), makeup_db)
+    got = np.asarray(K._curve_gain(jnp.asarray(e2), curve), np.float64)
+    level_db = 20.0 * np.log10(e2.astype(np.float64))
+    want = 10.0 ** ((np.asarray(L.soft_knee_gain_db(
+        jnp.asarray(level_db), -6.0, 6.0, ratio)) + makeup_db) / 20.0)
+    np.testing.assert_allclose(got, want, rtol=2e-5)
+
+
+@pytest.mark.parametrize("ch", [1, 2])
+def test_ops_limiter_engines_agree(rng, ch):
+    """ops.limiter through the card's engine (kernel, interpreted) and
+    the XLA engine (f64 scans) agree, carried state included."""
+    x = _signal(rng, (2, ch, 2048))
+    st = _state(rng, 2)
+    y_x, s_x = L.limiter(jnp.asarray(x), SR, state=st, backend="xla")
+    y_g, s_g = L.limiter(jnp.asarray(x), SR, state=st,
+                         backend="gpu_interpret")
+    ref = np.asarray(y_x, np.float64)
+    assert rms_db(np.asarray(y_g, np.float64) - ref, ref) <= -80.0
+    for a, b in zip(s_g, s_x):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-4)
 
 
-def test_envelope_n_valid_padded_detector():
-    """n_valid= consumes a padded upstream array: outputs and carried
-    state equal the sliced-input call exactly (round-3 padded kernel
-    handoff, kernels/fftconv trim=False)."""
-    import numpy as np
-    from xmtpu.kernels.envelope import envelope_pallas
-
-    rng = np.random.default_rng(5)
-    n, n_pad = 4800, 5632
-    d = np.abs(rng.standard_normal((130, n_pad))).astype(np.float32)
-    init = (jnp.asarray(np.abs(rng.standard_normal(130)), jnp.float32),
-            jnp.asarray(np.abs(rng.standard_normal(130)), jnp.float32))
-    e_ref, z_ref = envelope_pallas(jnp.asarray(d[:, :n]), 0.999, 0.04,
-                                   init=init, interpret=True)
-    e_nv, z_nv = envelope_pallas(jnp.asarray(d), 0.999, 0.04, init=init,
-                                 interpret=True, n_valid=n)
-    assert e_nv.shape == (130, n)
-    np.testing.assert_array_equal(np.asarray(e_nv), np.asarray(e_ref))
-    for a, b in zip(z_nv, z_ref):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+# --- engine policy (xmtpu.engine) -------------------------------------------
 
 
-def test_iir_kernel_empty_cascade_identity(rng):
-    """Zero-band EQ == identity, matching the scan twin (the segment
-    picker used to crash reducing an empty eigenvalue array; review
-    find)."""
-    import numpy as np
-
-    from xmtpu.kernels.iir import sosfilt_pallas
-
-    x = (0.3 * rng.standard_normal((2, 8192))).astype(np.float32)
-    y, zf = sosfilt_pallas(np.zeros((0, 6)), x, interpret=True)
-    np.testing.assert_array_equal(np.asarray(y), x)
-    assert zf.shape == (0, 2, 2)
+@pytest.mark.parametrize("name,want", [
+    ("xla", ("xla", False)), ("scan", ("xla", False)),
+    ("oracle", ("xla", False)), ("gpu_interpret", ("gpu", True))])
+def test_engine_names_resolve(name, want):
+    assert E.resolve(name) == want
 
 
-def test_envelope_auto_tc_always_sublane_multiple():
-    """Every _auto_tc return must be a multiple of 8: the (tc, lanes)
-    BlockSpec's second-minor dim must land on the f32 (8,128) tile —
-    Mosaic rejects it at lowering, which interpret-mode tests never see.
-    A caller tc like 500 that happened to divide n used to pass through
-    the fast path unrounded (review find)."""
-    from xmtpu.kernels.envelope import _auto_tc
-
-    for n, tc in [(1000, 500), (4800, 2048), (999, 37), (8000, 100),
-                  (2048, 7), (123456, 2048)]:
-        got = _auto_tc(n, tc)
-        assert got % 8 == 0 and got > 0, (n, tc, got)
-    # a non-8 caller tc still computes exactly (interpret parity)
-    import numpy as np
-    from xmtpu.kernels.envelope import envelope_pallas
-
-    rng = np.random.default_rng(6)
-    d = np.abs(rng.standard_normal((130, 1000))).astype(np.float32)
-    # block=1: the blocked default splits each chunk into CH-blocks +
-    # per-sample tail, so DIFFERENT tc values associate f32 ops
-    # differently — bit-exact tc-invariance is a per-sample property
-    e_a, z_a = envelope_pallas(jnp.asarray(d), 0.999, 0.04,
-                               time_chunk=500, interpret=True, block=1)
-    e_b, z_b = envelope_pallas(jnp.asarray(d), 0.999, 0.04, interpret=True,
-                               block=1)
-    np.testing.assert_allclose(np.asarray(e_a), np.asarray(e_b), atol=0,
-                               rtol=0)
+def test_engine_auto_follows_platform(monkeypatch):
+    """auto: gpu -> the card's engine, cpu -> the XLA twins, and never
+    interpret mode (nothing turns it on because it found a CPU)."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert E.resolve(None) == ("gpu", False)
+    assert E.resolve("auto") == ("gpu", False)
+    assert E.resolve("gpu") == ("gpu", False)
+    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
+    assert E.resolve("auto") == ("xla", False)
+    for name in E.NAMES:
+        if name != "gpu_interpret" and name != "gpu":
+            assert E.resolve(name)[1] is False, name
 
 
-def test_envelope_block_lookahead_property():
-    """Property sweep (seeded): blocked == per-sample envelope across
-    random coefficients (incl. the k=0 / c=1 / k->1 edges), lengths
-    (ragged tails), block factors, and carried states."""
-    from xmtpu.kernels.envelope import envelope_pallas
-
-    rng = np.random.default_rng(20260818)
-    for trial in range(14):
-        # INDEPENDENT draws per dimension: the old trial%3 / trial%2
-        # indexing correlated the axes (k=0 only ever met B=2; c=1.0
-        # never met a carried init), so the claimed edge-case cross
-        # coverage was a diagonal, not a sweep (review find)
-        k_rel = [0.0, 1.0, float(rng.uniform(0.3, 0.99999))][
-            int(rng.integers(3))]
-        c_att = [1.0, float(rng.uniform(0.001, 0.9))][int(rng.integers(2))]
-        B = int([2, 8, 32][int(rng.integers(3))])
-        n = int(rng.integers(64, 3000))
-        R = int(rng.integers(1, 9))
-        d = np.abs(rng.standard_normal((R, n))).astype(np.float32)
-        init = None
-        if rng.integers(2):
-            init = (jnp.asarray(np.abs(rng.standard_normal(R)), jnp.float32),
-                    jnp.asarray(np.abs(rng.standard_normal(R)), jnp.float32))
-        e_ref, z_ref = envelope_pallas(jnp.asarray(d), k_rel, c_att,
-                                       init=init, interpret=True, segments=1,
-                                       block=1)
-        e_blk, z_blk = envelope_pallas(jnp.asarray(d), k_rel, c_att,
-                                       init=init, interpret=True, segments=1,
-                                       block=B)
-        ref = np.asarray(e_ref, np.float64)
-        db = rms_db(np.asarray(e_blk, np.float64) - ref, ref + 1e-12)
-        assert db <= -90.0, (trial, k_rel, c_att, B, n, R, db)
-        for a, b in zip(z_blk, z_ref):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       rtol=1e-4, atol=1e-30,
-                                       err_msg=str((trial, k_rel, c_att, B)))
-    # pinned combos the correlated sweep provably never hit
-    from xmtpu.kernels.envelope import envelope_pallas as _env
-
-    for k_rel, c_att, B in [(1.0, 0.2, 32), (0.9, 1.0, 8), (0.0, 1.0, 32)]:
-        d = np.abs(rng.standard_normal((3, 777))).astype(np.float32)
-        init = (jnp.asarray(np.abs(rng.standard_normal(3)), jnp.float32),
-                jnp.asarray(np.abs(rng.standard_normal(3)), jnp.float32))
-        e_ref, z_ref = _env(jnp.asarray(d), k_rel, c_att, init=init,
-                            interpret=True, segments=1, block=1)
-        e_blk, z_blk = _env(jnp.asarray(d), k_rel, c_att, init=init,
-                            interpret=True, segments=1, block=B)
-        ref = np.asarray(e_ref, np.float64)
-        db = rms_db(np.asarray(e_blk, np.float64) - ref, ref + 1e-12)
-        assert db <= -90.0, (k_rel, c_att, B, db)
+def test_engine_unknown_platform_raises(monkeypatch):
+    monkeypatch.setattr(jax, "default_backend", lambda: "bogus")
+    with pytest.raises(E.EngineError, match="bogus"):
+        E.resolve("auto")
+    assert issubclass(E.EngineError, ConfigError)
 
 
-def test_iir_kernel_wide_lanes_parity(sos, rng):
-    """lanes=256 (chain-interleaved row tiles, the envelope kernel's
-    measured latency-hiding trick) == the 128-lane default, including
-    partial tiles (R=140: one full + one 3/4 tile at 256) and the
-    segmented small-batch path."""
-    x = (0.3 * rng.standard_normal((140, 4096))).astype(np.float32)
-    y128, z128 = sosfilt_pallas(sos, jnp.asarray(x), interpret=True,
-                                segments=1)
-    y256, z256 = sosfilt_pallas(sos, jnp.asarray(x), interpret=True,
-                                segments=1, lanes=256)
-    np.testing.assert_array_equal(np.asarray(y256), np.asarray(y128))
-    np.testing.assert_array_equal(np.asarray(z256), np.asarray(z128))
-    # segmented auto pick fills toward the wider lane target (min_seglen
-    # relaxed so the lane bound is what binds)
-    from xmtpu.kernels.iir import pick_segments
-    assert pick_segments(2, 65536, min_seglen=512, lanes=256) \
-        == 2 * pick_segments(2, 65536, min_seglen=512)
-    n = 32768
-    x2 = (0.4 * rng.standard_normal((2, n))).astype(np.float32)
-    ys, _ = sosfilt_pallas(sos, jnp.asarray(x2), interpret=True, lanes=256)
-    yp, _ = sosfilt_pallas(sos, jnp.asarray(x2), interpret=True, segments=1)
-    assert rms_db(np.asarray(ys, np.float64) - np.asarray(yp, np.float64),
-                  np.asarray(yp, np.float64)) <= -75.0
-    with pytest.raises(ValueError, match="multiple of"):
-        sosfilt_pallas(sos, jnp.asarray(x2), interpret=True, lanes=192)
+def test_engine_gpu_needs_the_card(monkeypatch):
+    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
+    with pytest.raises(E.EngineError, match="gpu_interpret"):
+        E.resolve("gpu")
+    with pytest.raises(ConfigError, match="unknown engine"):
+        E.resolve("pallas")
 
 
-# ---------------------------------------------------------------------------
-# Fused limiter kernel (envelope + in-kernel soft-knee curve + clamp)
-# ---------------------------------------------------------------------------
+def _build_limiter_fx(backend):
+    from xmtpu.graph import fx
+
+    fx.build_chain(SR, [{"name": "limiter", "params": {"backend": backend}}])
 
 
-@pytest.mark.parametrize("block", [1, 8])
-def test_limiter_pallas_fused_matches_oracle(rng, block):
-    """kernels.envelope.limiter_pallas (gain curve applied in-kernel on
-    the VMEM tile) must match the f64 numpy oracle at the same -80 dB
-    gate as the unfused envelope+curve composition. R=8, n=1600 keeps
-    pick_segments at 1, pinning the FUSED path (not the fallback)."""
-    from xmtpu.kernels.envelope import limiter_pallas
-    from xmtpu.kernels.iir import pick_segments
-    from xmtpu.ops import limiter as L
+def _build_eq_fx(backend):
+    from xmtpu.graph import fx
 
-    R, n = 8, 1600
-    assert pick_segments(R, n, lanes=256) == 1
-    x = (0.9 * rng.standard_normal((R, n))).astype(np.float32)
-    sr = 16000
-    k_rel = L._release_coeff(80.0, sr)
-    c_att = L._attack_coeff(1.0, sr)
-    y, (el, sl) = limiter_pallas(jnp.asarray(x), k_rel, c_att,
-                                 threshold_db=-6.0, interpret=True,
-                                 block=block)
-    ref, (el_r, sl_r) = L.limiter_np(x[:, None, :], sr, threshold_db=-6.0,
-                                     attack_ms=1.0, release_ms=80.0)
-    ref = ref[:, 0, :]
-    assert rms_db(np.asarray(y, np.float64) - ref, ref) <= -80.0
-    assert rms_db(np.asarray(el, np.float64) - el_r, el_r) <= -80.0
-    assert rms_db(np.asarray(sl, np.float64) - sl_r, sl_r) <= -80.0
-    # the ceiling clamp must hold exactly on the fused path too
-    assert np.max(np.abs(np.asarray(y))) <= 10.0 ** (0.0 / 20.0) + 1e-6
+    fx.build_chain(SR, [{"name": "equalizer", "params": {
+        "bands": [{"freq_hz": 1000.0, "gain_db": 3.0, "q": 1.0}],
+        "backend": backend}}])
 
 
-def test_limiter_pallas_fused_n_valid(rng):
-    """n_valid: a hop-padded upstream tail (fftconv trim=False) must be
-    sliced away by the fused kernel, matching the unpadded run."""
-    from xmtpu.kernels.envelope import limiter_pallas
+def _build_flagship(backend):
+    from xmtpu import batch as xb
 
-    R, n, npad = 8, 1600, 2048
-    x = (0.8 * rng.standard_normal((R, npad))).astype(np.float32)
-    y_pad, st_pad = limiter_pallas(jnp.asarray(x), 0.995, 0.4,
-                                   threshold_db=-6.0, interpret=True,
-                                   n_valid=n)
-    y_ref, st_ref = limiter_pallas(jnp.asarray(x[:, :n]), 0.995, 0.4,
-                                   threshold_db=-6.0, interpret=True)
-    assert y_pad.shape == (R, n)
-    np.testing.assert_array_equal(np.asarray(y_pad), np.asarray(y_ref))
-    np.testing.assert_array_equal(np.asarray(st_pad[0]), np.asarray(st_ref[0]))
+    xb.make_flagship_step(engine=backend)
 
 
-def test_limiter_pallas_segmented_fallback(rng):
-    """Small batch at long n takes the segmented envelope, where the
-    in-kernel curve would read a pre-correction e2 — the entry point
-    must FALL BACK to the unfused composition and still match the
-    oracle."""
-    from xmtpu.kernels.envelope import limiter_pallas
-    from xmtpu.kernels.iir import pick_segments
-    from xmtpu.ops import limiter as L
+def _build_pool(backend):
+    from xmtpu.graph.pool import SessionPool
 
-    R, n = 2, 16384
-    assert pick_segments(R, n, lanes=256) > 1
-    x = (0.9 * rng.standard_normal((R, n))).astype(np.float32)
-    sr = 16000
-    k_rel = L._release_coeff(80.0, sr)
-    c_att = L._attack_coeff(1.0, sr)
-    y, _ = limiter_pallas(jnp.asarray(x), k_rel, c_att, threshold_db=-6.0,
-                          interpret=True, block=8)
-    ref, _ = L.limiter_np(x[:, None, :], sr, threshold_db=-6.0,
-                          attack_ms=1.0, release_ms=80.0)
-    ref = ref[:, 0, :]
-    assert rms_db(np.asarray(y, np.float64) - ref, ref) <= -80.0
+    SessionPool({"tracks": [{"url": "v"}], "sampleRate": SR,
+                 "normalize": None}, 1, effects_backend=backend)
+
+
+@pytest.mark.parametrize("build", [
+    _build_limiter_fx, _build_eq_fx, _build_flagship, _build_pool])
+@pytest.mark.parametrize("backend,match", [
+    ("gpu", "gpu_interpret"), ("pallas_interpret", "unknown engine")])
+def test_entry_points_refuse_engines_they_cannot_run(monkeypatch, build,
+                                                     backend, match):
+    """An explicit engine request is refused with a ConfigError at build
+    time, never silently downgraded: 'gpu' on a CPU platform, and any
+    name the engine module does not know."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
+    with pytest.raises(ConfigError, match=match):
+        build(backend)
+
+
+# --- compile cache (xmtpu._cachedir) ----------------------------------------
+
+
+def test_cache_dir_env_wins(tmp_path):
+    from xmtpu import _cachedir
+
+    assert _cachedir.cache_dir({"JAX_COMPILATION_CACHE_DIR": str(tmp_path)}) \
+        == str(tmp_path)
+
+
+def test_cache_dir_default_is_in_checkout():
+    import os
+
+    from xmtpu import _cachedir
+
+    d = _cachedir.cache_dir({})
+    assert d == os.path.join(_cachedir.REPO_ROOT, ".jax_cache",
+                             _cachedir.host_fingerprint())
+    assert _cachedir.host_fingerprint() == _cachedir.host_fingerprint()
+    assert len(_cachedir.host_fingerprint()) == 12
+
+
+def test_cache_dir_applied_on_import():
+    """Importing xmtpu points jax at $JAX_COMPILATION_CACHE_DIR when set
+    (jax reads it itself), else at the in-checkout directory."""
+    import os
+
+    from xmtpu import _cachedir
+
+    got = jax.config.jax_compilation_cache_dir
+    assert got == (os.environ.get(_cachedir.ENV) or _cachedir.cache_dir())
+
+
+def test_cache_dir_gitignored():
+    import os
+
+    from xmtpu import _cachedir
+
+    with open(os.path.join(_cachedir.REPO_ROOT, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()
+
+
+# --- on the card (python chip_smoke.py runs these) --------------------------
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("shape", [(256, 1, 160000), (16, 2, 480000)])
+def test_limiter_kernel_compiled_on_card(shape):
+    """The compiled kernel at real widths vs the f64 scan engine."""
+    rng = np.random.default_rng(1)
+    x = jnp.asarray(_signal(rng, shape, loud=0.5))
+    y_k = jax.jit(lambda v: L.limiter(v, SR, backend="gpu")[0])(x)
+    y_x = jax.jit(lambda v: L.limiter(v, SR, backend="xla")[0])(x)
+    ref = np.asarray(y_x, np.float64)
+    assert rms_db(np.asarray(y_k, np.float64) - ref, ref) <= -80.0
+
+
+@pytest.mark.chip
+def test_flagship_gpu_engine_on_card():
+    """The card's flagship chain vs the float64 host oracle."""
+    from xmtpu import batch as xb
+
+    rng = np.random.default_rng(2)
+    v = (rng.standard_normal((4, 44100)) * 9000).astype(np.int16)
+    b = (rng.standard_normal((4, 44100)) * 3000).astype(np.int16)
+    y = np.asarray(jax.jit(xb.make_flagship_step(engine="gpu"))(v, b))
+    ref = xb.flagship_oracle_np(v[3], b[3]).astype(np.float64)
+    assert rms_db((y[3] - ref) / 32768.0, ref / 32768.0) <= -80.0

@@ -320,11 +320,10 @@ def test_stream_ns_per_item_reset_reruns_leadin():
     # both sides -> bit-exact on every backend)
     np.testing.assert_array_equal(yr[1], yc[1])
     # item 0 == a FRESH stream fed the same second half (lead-in
-    # re-ran). Cross-SHAPE comparison: the TPU backend rounds the
-    # (B, ch, nfft) and (ch, nfft) FFTs differently in the last bit
-    # (~1e-7 relative, observed 2026-08-20), so this leg is gated at
-    # -120 dB instead of bit-exact — still far beyond the no-op
-    # failure mode this test exists to catch.
+    # re-ran). Cross-SHAPE comparison: an accelerator FFT may round the
+    # (B, ch, nfft) and (ch, nfft) transforms differently in the last
+    # bit, so this leg is gated at -120 dB instead of bit-exact — still
+    # far beyond the no-op failure mode this test exists to catch.
     stf = ns.stream_init(ch, nfft=nfft)
     of = []
     for i in range(n // 2, n, blk):

@@ -102,7 +102,7 @@ def test_dc_preservation():
 
 def test_framed_lane_padding_ignored(rng):
     """polyphase_resample_framed accepts a lane-padded (..., nc, Mp>M)
-    operand (so the dot operand is natively (8,128)-tileable on TPU)
+    operand (padding the frame's minor dimension)
     and the pad lanes never reach the output: padded filter rows are
     zero and the correction dots slice only real lanes. Garbage pad
     values must therefore give the same answer as the unpadded frames

@@ -1,4 +1,4 @@
-"""xmtpu — TPU-native audio preprocessing framework.
+"""xmtpu — accelerator-native audio preprocessing framework (JAX, NVIDIA GPU).
 
 A ground-up rebuild of the capabilities of ``sunyuchuan/xm-audio-utils``
 (an Android/iOS C audio-processing library: FFmpeg decode -> polyphase
@@ -22,28 +22,20 @@ Reference analogue of this module: the public header ``xm_audio_utils.h``
 
 import os as _os
 
-from xmtpu._cachedir import host_cache_dir as _host_cache_dir
+import jax as _jax
 
-# Persistent XLA compilation cache, keyed by a host fingerprint — a
-# cache written by a different host loads with only a warning and then
-# computes WRONG numerics (see _cachedir.py). setdefault: an explicit
-# JAX_COMPILATION_CACHE_DIR in the environment wins. Must run before
-# the first jax import.
-_os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", _host_cache_dir())
+from xmtpu import _cachedir
 
-import jax as _jax  # noqa: E402
-
-if _jax.config.jax_compilation_cache_dir is None:
-    # jax was imported before xmtpu, so the env default above was too
-    # late — apply it through the live config instead (None = the user
-    # set nothing themselves; an explicit user setting wins).
-    _jax.config.update("jax_compilation_cache_dir",
-                       _os.environ["JAX_COMPILATION_CACHE_DIR"])
+# Persistent XLA compilation cache: $JAX_COMPILATION_CACHE_DIR when set
+# (jax reads it itself; nothing else is set here), else one fixed
+# directory inside the checkout (see _cachedir.py).
+if not _os.environ.get(_cachedir.ENV):
+    _jax.config.update("jax_compilation_cache_dir", _cachedir.cache_dir())
 
 # IIR filter-state scans use float64 state for accuracy (SURVEY.md §7.4②:
-# f32 scan floors at -77 dB vs oracle; f64 reaches -152 dB at negligible
-# cost). All xmtpu ops pass explicit dtypes, so enabling x64 here does not
-# change the dtype of any f32 compute path.
+# an f32 scan floors at -77 dB vs the oracle). All xmtpu ops pass
+# explicit dtypes, so enabling x64 here does not change the dtype of any
+# f32 compute path.
 _jax.config.update("jax_enable_x64", True)
 
 __version__ = "0.1.0"

@@ -1,24 +1,18 @@
-"""Host-fingerprinted JAX persistent-compilation-cache directory.
+"""Where the JAX persistent compilation cache lives.
 
-Import-safe before jax (no jax imports): callers must set
-``JAX_COMPILATION_CACHE_DIR`` in the environment before the first jax
-import for it to take effect.
+Import-safe before jax (no jax imports). Rule: if
+``JAX_COMPILATION_CACHE_DIR`` is set, the program uses that directory
+and sets no other. If it is not set, the cache goes to one fixed
+directory inside the checkout, ``<repo>/.jax_cache/<host fingerprint>``
+(``.jax_cache`` is listed in ``.gitignore``): a fixed path keeps the
+cache's key stable from run to run.
 
-Why fingerprinted: XLA:CPU AOT executables record the build machine's
-CPU feature set; loading them on a different host only WARNS ("Machine
-type used for XLA:CPU compilation doesn't match ...") and then silently
-computes WRONG numerics (observed: a -80 dB pool-parity test reading
-+3.7 dB from a cache written by a previous driver host whose avx512
-prefer-no-scatter flag this host lacks). Keying the directory by the
-CPU identity makes a host change start a fresh cache instead of loading
-poisoned artifacts.
-
-The key includes the cpuinfo ``model name`` line, not just ``flags``:
-XLA adds LLVM *tuning* features (``prefer-no-scatter``/``prefer-no-
-gather``) chosen from the CPU model, which never appear in the flags
-line — two hosts with identical flag sets but different models produced
-a mismatched (warning-only) AOT load through the flags-keyed cache
-(seen 2026-08-18 in the virtual-mesh dryrun).
+Why a host-fingerprint subdirectory: XLA:CPU executables record the
+build machine's CPU feature set; loading them on a different host only
+WARNS ("Machine type used for XLA:CPU compilation doesn't match ...")
+and can then compute wrong numerics. Keying the subdirectory by the CPU
+identity (model name and feature flags, which are stable on a host)
+makes a host change start a fresh cache instead.
 """
 
 from __future__ import annotations
@@ -27,17 +21,19 @@ import hashlib
 import os
 import platform
 
-# identity lines: x86 (flags/model name/...) AND aarch64 (Features/CPU
-# implementer/part/variant/architecture) — with x86-only prefixes every
-# ARM host fingerprinted identically and the cross-host poisoning this
-# module exists to prevent returned (review find). Volatile lines
-# ("cpu MHz", "bogomips") stay excluded: they change across boots.
+ENV = "JAX_COMPILATION_CACHE_DIR"
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# identity lines: x86 (flags/model name/...) and aarch64 (Features/CPU
+# implementer/part/variant/architecture). Volatile lines ("cpu MHz",
+# "bogomips") stay out: they change across boots.
 _ID_PREFIXES = ("flags", "model name", "vendor_id", "cpu family",
                 "model\t", "stepping", "Features", "CPU implementer",
                 "CPU part", "CPU variant", "CPU architecture")
 
 
-def host_cache_dir(prefix: str = "/tmp/xmtpu_jax_cache") -> str:
+def host_fingerprint() -> str:
+    """12 hex digits naming this host's CPU (machine + cpuinfo id lines)."""
     ident = [platform.machine()]
     try:
         with open("/proc/cpuinfo") as f:
@@ -48,26 +44,13 @@ def host_cache_dir(prefix: str = "/tmp/xmtpu_jax_cache") -> str:
                     break  # one processor block is enough
     except OSError:
         ident.append(platform.processor())
-    fp = hashlib.sha1("\n".join(sorted(set(ident))).encode()).hexdigest()[:12]
-    # per-uid: a predictable world-shared /tmp path could be
-    # pre-created (and its AOT entries planted) by another local user —
-    # cache entries are executable machine code (review find)
-    path = f"{prefix}_u{os.getuid()}_{fp}"
-    # the uid suffix alone is still a PREDICTABLE path another local
-    # user can pre-create and own (review find): create it 0700 now and
-    # verify ownership; a foreign-owned dir is abandoned for a
-    # user-private location under ~/.cache
-    try:
-        os.makedirs(path, mode=0o700, exist_ok=True)
-        st = os.stat(path)
-        if st.st_uid == os.getuid():
-            if st.st_mode & 0o077:  # pre-existing dir from before this
-                # hardening: tighten in place (same-owner, so safe)
-                os.chmod(path, 0o700)
-            return path
-    except OSError:
-        pass
-    home = os.path.expanduser("~")
-    alt = os.path.join(home, ".cache", os.path.basename(path))
-    os.makedirs(alt, mode=0o700, exist_ok=True)
-    return alt
+    return hashlib.sha1("\n".join(sorted(set(ident))).encode()).hexdigest()[:12]
+
+
+def cache_dir(environ=os.environ) -> str:
+    """The cache directory: ``$JAX_COMPILATION_CACHE_DIR`` when set, else
+    ``<repo>/.jax_cache/<host fingerprint>``."""
+    explicit = environ.get(ENV)
+    if explicit:
+        return explicit
+    return os.path.join(REPO_ROOT, ".jax_cache", host_fingerprint())

@@ -102,10 +102,10 @@ def effects(pcm, sample_rate: int, chain, **kw):
     """Effect chain (config 3, SURVEY.md §3.5).
 
     ``pcm``: int16 or f32, (n,), (n, ch), or a batched (B, n, ch) clip
-    stack. By default the chain runs the PRODUCTION engine on TPU
-    (sequential Pallas IIR/envelope kernels + the VMEM-resident fftconv
-    reverb — the same kernels the benchmarks measure) and the f64
-    oracle scans on CPU; force with ``backend="scan"|"pallas"``. Other
+    stack. By default the chain runs the platform's engine
+    (``xmtpu.engine``): on the GPU the card's engine (EQs folded into
+    the XLA reverb, the limiter envelope kernel), on the CPU the f64
+    scans; name one with ``backend="gpu"|"xla"``. Other
     kwargs: ``block_size`` (N3 block scheduler), ``device_out`` (skip
     the host fetch). See :func:`xmtpu.graph.fx.apply_chain`.
     """
@@ -132,13 +132,12 @@ class Session:
 
     Latency: at the default ``prefetch_depth=1``, ``read()`` pays one
     host<->device round trip per frame — real-time frame-by-frame
-    streaming needs RTT < frame_ms (true on attached hosts, NOT
-    through a high-RTT tunnel). ``prefetch_depth=d`` dispatches d
+    streaming needs RTT < frame_ms. ``prefetch_depth=d`` dispatches d
     frames ahead with eager device->host copies, removing the RTT
     bound from the sustained cadence once d*frame_ms > RTT (d frames
     of speculative work are discarded on seek); ``read_many``
     amortizes the round trip over k frames. See
-    :class:`xmtpu.graph.streaming.StreamSession` for measured numbers.
+    :class:`xmtpu.graph.streaming.StreamSession`.
 
     Not thread-safe: one Session per thread, like the reference's
     one-handle-per-thread model. For many concurrent streams in one

@@ -86,8 +86,8 @@ def _cmd_effects(args) -> int:
         chain = chain["effects"]
     if args.block_size < 0:
         # a sign typo used to silently disable the block scheduler —
-        # the most expensive possible behavior (whole-clip remote
-        # compile per distinct length) with no signal (review find)
+        # the most expensive possible behavior (a whole-clip compile per
+        # distinct length) with no signal
         raise SystemExit(
             f"--block-size must be > 0 (or 0 for whole-clip), got "
             f"{args.block_size}")
@@ -111,10 +111,9 @@ def _cmd_bench(args) -> int:
     from xmtpu.utils.profiling import trace
 
     if args.config is None:
-        # one SUBPROCESS per config: an all-in-one in-process sweep
-        # measured config 3 at less than half its standalone throughput
-        # (cross-config device-state interference — BASELINE.md timing
-        # convention), so the publishable path forks per config
+        # one SUBPROCESS per config, one after another: configs do not
+        # share device state, and a JAX process reserves most of the
+        # card's memory, so no two run at once
         import subprocess
 
         rc = 0
@@ -147,7 +146,7 @@ def _cmd_batch(args) -> int:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="xmtpu",
-                                description="TPU-native audio preprocessing")
+                                description="Audio preprocessing on JAX (NVIDIA GPU)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     pr = sub.add_parser("resample", help="rate-convert a WAV file")

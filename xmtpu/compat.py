@@ -5,7 +5,7 @@ Reference analogue: the public C surface of the upstream —
 freep`` (``src/xm_audio_utils.c``) and ``xm_audio_generator_start /
 get_progress / stop`` (``src/xm_audio_generator.c``) [upstream,
 SURVEY.md §2.1/§3.1/§3.2]. A user of the reference can keep their
-call shape; each method maps onto the TPU-native machinery
+call shape; each method maps onto the device machinery
 (StreamSession, pipeline.process_file).
 
 The generator runs asynchronously on a host thread with a pollable

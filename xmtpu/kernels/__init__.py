@@ -1,9 +1,11 @@
-"""Pallas TPU kernels (layer N1 in SURVEY.md §1.2).
+"""Hand-written GPU kernels (layer N1 in SURVEY.md §1.2).
 
-The TPU-native analogue of the reference's hand-written C DSP inner
-loops (``lib-audio-utils/src/effects/`` hot loops [upstream, SURVEY.md
-§2.1]): each kernel has a pure-JAX twin in ``xmtpu.ops`` that serves as
-the correctness oracle and interpret-mode fallback (SURVEY.md §4.2).
+The analogue of the reference's hand-written C DSP inner loops
+(``lib-audio-utils/src/effects/`` hot loops [upstream, SURVEY.md
+§2.1]). One remains: the limiter envelope (``envelope.py``), a Pallas
+kernel on the Triton route. Its plain twin in ``xmtpu.ops.limiter`` is
+the correctness oracle, and the kernel runs in Pallas interpret mode on
+the CPU when a caller names the ``gpu_interpret`` engine.
 """
 
-from xmtpu.kernels.iir import sosfilt_pallas  # noqa: F401
+from xmtpu.kernels.envelope import limiter_kernel  # noqa: F401

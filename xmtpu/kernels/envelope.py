@@ -1,50 +1,42 @@
-"""Pallas kernel: limiter envelope follower (decaying max + one-pole).
+"""Pallas kernel (Triton route): the limiter's envelope follower.
 
 Reference analogue: the limiter's per-sample envelope C loop
 (``src/effects/`` [upstream, SURVEY.md §2.1]).
 
 The sequential part of the soft-knee limiter is two chained first-order
-recurrences over the detector signal d[n] (ops.limiter pinned math):
+recurrences over the detector d[t] (``ops.limiter`` pinned math):
 
-    env[n] = max(d[n], k_rel * env[n-1])      (peak hold, exp release)
-    e2[n]  = (1-c_att) e2[n-1] + c_att env[n] (attack smoothing)
+    env[t] = max(d[t], k_rel * env[t-1])      (peak hold, exp release)
+    e2[t]  = (1-c_att) e2[t-1] + c_att env[t] (attack smoothing)
 
-Everything else (channel-link max, soft-knee curve, gain, clamp) is
-elementwise and stays in XLA where it fuses. Layout/grid as
-``kernels.iir``: time on sublanes, batch rows on lanes, state in VMEM
-scratch across sequential time-chunk grid steps.
+followed by the elementwise soft-knee curve and ceiling clamp.
 
-WIDE-LANE CHAIN INTERLEAVE (round 3). Measured per-step cost of the
-(1, 128) sequential loop is ~20 cycles for only ~4 ALU ops — the loop
-is LATENCY-bound on the dependent recurrence, not issue-bound (VPU op
-cost is otherwise proportional to elements: an (8,128) op costs ~8x a
-(1,128) op — measured round 2 — so vectorizing the math CANNOT win; a
-stride-4 restride with masked prefix trees measured 1.4x SLOWER).
-Widening the row tile to (1, lanes) with lanes = 256/512 puts 2/4
-INDEPENDENT chains (different rows or time segments) in each op: their
-dependency chains interleave in the pipeline and the stalls fill with
-real work at zero extra arithmetic. Lane count is a parameter; the
-auto picks fill up to ``_LANES_TARGET`` when enough rows/segments
-exist.
+Design (one kernel; its passes emit final states only, the gain, or the
+limited signal):
 
-BLOCK LOOKAHEAD (round 3, opt-in ``block=``): the lane widening above
-hides latency ACROSS chains; ``block=B`` shortens the chain ITSELF.
-Both recurrences are affine in a semiring — decaying max in (max, *),
-one-pole in (+, *) — so the carry can step B samples at a time
-(env_blk' = max(p, k^B env_blk); e2_blk' = a^B e2_blk + c*s) with the
-within-block values reconstructed by vectorized decayed-prefix
-Kogge-Stone trees, masked at block boundaries by a plain multiply
-(both semirings' identity is 0 and the |x| detector is nonnegative).
-Exact in exact arithmetic — unlike the IIR 4-sample lookahead
-(rejected: coefficient cancellation), max/+ with positive weights
-cannot cancel. Sequential steps drop B-fold; the added prefix-tree
-work is throughput-bound VPU math on data already in VMEM.
-
-INLINE SEGMENT CORRECTION: the segmented path's pass B (one-pole over
-the corrected envelope max(env0[t], E * k^(t+1))) reads env0 raw and
-applies the correction on the loaded tile from a per-lane row ``E``
-and a shared time column ``ktab`` — the (R, n)-sized corrected
-envelope is never materialized to HBM (saves a full write+read).
+* **Layout.** Time-major ``(n, lanes)``: one lane is one (row, segment)
+  pair, so the loads of a warp at step t are contiguous. The grid runs
+  over blocks of ``_BLOCK_LANES`` lanes only; an in-kernel
+  ``lax.fori_loop`` walks time with the state in registers.
+* **Loads ahead of the recurrence.** Each loop step handles ``_UNROLL``
+  samples and issues the NEXT step's ``_UNROLL`` loads before it runs
+  the dependent chain on the current ones, so device-memory latency
+  overlaps the arithmetic instead of stalling every step.
+* **Segments fill the card.** Batch x channels is 16-512 rows against
+  132 SMs, so each row splits into S segments along time
+  (:func:`pick_segments`). The segments' incoming states are exact: a
+  first pass with zero state gives each segment's final decaying max,
+  a decaying-max scan across segments gives every segment's true
+  incoming envelope; a second pass from those gives each segment's
+  final one-pole value, and an affine scan gives the true incoming
+  smoother state. The third pass runs from the exact states and emits
+  the output, so no correction follows it and the soft-knee curve can
+  be applied in the kernel. The first two passes read the signal and
+  write only one float per lane.
+* **Fused curve.** The output pass emits the soft-knee gain (linked
+  channels) or the limited signal itself (mono: ``|x|`` detector, gain
+  and clamp on the loaded values), so the envelope never reaches
+  device memory.
 """
 
 from __future__ import annotations
@@ -55,825 +47,227 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-LANES = 128  # minimum/base lane tile (f32 vreg width)
-_LANES_TARGET = 256  # chain-interleave width the auto paths fill toward
-# default block-lookahead factor (envelope_pallas block=None). Chip
-# probe 2026-08-19: headline chain 224.2k -> 243.4k a-s/s at block=8
-# (+8.5%, far above the 0.4% base run spread); block=16 measured equal
-# to 8 within spread, so the shallower prefix tree wins the tie.
-DEFAULT_BLOCK = 8
-# (256 = 2 f32 vregs: the 2-op/step recurrence stays latency-covered;
-# 512 tips into issue-bound — chip sweep round 3: 6.43 ms at 256 vs
-# 7.64 at 512 on a (32, 480k) segmented envelope)
+from xmtpu.ops.limiter import _EPS, _knee_slope
+
+_BLOCK_LANES = 32  # lanes per program: one warp, one lane per thread
+_UNROLL = 16  # samples per loop step (and loads kept in flight)
+_LANES_FILL = 32768  # segment lanes that keep 132 SMs busy
+_MIN_SEGLEN = 512  # shortest segment worth its two extra passes
+_LN10 = float(np.log(10.0))
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-from xmtpu.ops.limiter import _EPS  # level-meter floor — single source
-_LN10 = float(np.log(10.0))
+def pick_segments(R: int, n: int) -> int:
+    """Segment count S for R rows of n samples: the largest divisor of
+    n (exact corrections need equal segments) with R*S <= ``_LANES_FILL``
+    and segments of at least ``_MIN_SEGLEN`` samples; 1 when the rows
+    alone fill the card or n has no such divisor."""
+    for s in range(max(1, _LANES_FILL // max(R, 1)), 1, -1):
+        if n % s == 0 and n // s >= _MIN_SEGLEN:
+            return s
+    return 1
 
 
-def _curve_gain(e2_tile, curve):
-    """Soft-knee static GAIN from the smoothed envelope, on-tile
-    (ops.limiter.soft_knee_gain_db semantics, f32). ``curve`` is the
-    static 5-tuple (threshold_db, knee_db, ceiling_db, slope,
-    makeup_db) — slope precomputed from the ratio by
-    ops.limiter._knee_slope. Uses exp/log (Mosaic lowers VPU
-    transcendentals) instead of log10/power; identical math up to f32
-    rounding, gated at -80 dB like every stage."""
+def _curve_gain(e2, curve):
+    """Soft-knee static gain from the smoothed envelope
+    (``ops.limiter.soft_knee_gain_db`` semantics in f32, with exp/log
+    in place of log10/power). ``curve`` = (threshold_db, knee_db,
+    ceiling_db, slope, makeup_db)."""
     threshold_db, knee_db, _ceiling_db, slope, makeup_db = curve
-    level_db = (20.0 / _LN10) * jnp.log(jnp.maximum(e2_tile, _EPS))
+    level_db = (20.0 / _LN10) * jnp.log(jnp.maximum(e2, _EPS))
     over = level_db - threshold_db
     w = max(float(knee_db), 1e-6)
     in_knee = slope * (over + 0.5 * w) ** 2 / (2.0 * w)
-    red = jnp.where(
-        over <= -0.5 * w, 0.0,
-        jnp.where(over >= 0.5 * w, slope * over, in_knee))
+    red = jnp.where(over <= -0.5 * w, 0.0,
+                    jnp.where(over >= 0.5 * w, slope * over, in_knee))
     return jnp.exp((makeup_db - red) * (_LN10 / 20.0))
 
 
-def _curve_apply(x_tile, e2_tile, curve):
-    """FUSED GAIN EPILOGUE: soft-knee static curve + clamp applied on
-    the tile while it is still in VMEM (ops.limiter.apply_gain_curve
-    semantics, f32)."""
-    g = _curve_gain(e2_tile, curve)
-    ceil_amp = 10.0 ** (float(curve[2]) / 20.0)
-    return jnp.clip(x_tile * g, -ceil_amp, ceil_amp)
-
-
-def _env_kernel(coef_ref, init_ref, d_ref, *refs, n_total, tc,
-                has_corr=False, curve=None, curve_mode="apply"):
-    if has_corr:
-        kt_ref, e_ref, o_ref, zf_ref, st_ref = refs
+def _kernel(x_ref, init_ref, *out_refs, n, k_rel, c_att, absdet, emit,
+            curve, unroll):
+    if emit == "finals":
+        (fin_ref,) = out_refs
+        y_ref = None
     else:
-        o_ref, zf_ref, st_ref = refs
-    # curve_mode="apply" (fused y = clip(x*g)) needs the UNCORRECTED
-    # input tile as the signal, so it is single-pass only; "gain"
-    # (emit g itself — the linked-stereo segmented pass B, which runs
-    # with an EXACT carried init so no post-kernel correction exists)
-    # composes with the inline corrections.
-    assert not (has_corr and curve is not None and curve_mode == "apply")
-    t = pl.program_id(1)
-
-    @pl.when(t == 0)
-    def _():
-        st_ref[:] = init_ref[:]
-
-    k_rel = coef_ref[0, 0]
-    c_att = coef_ref[0, 1]
+        y_ref, fin_ref = out_refs
     a_att = 1.0 - c_att
+    ceil_amp = None if curve is None else 10.0 ** (float(curve[2]) / 20.0)
 
-    state = (st_ref[0:1, :], st_ref[1:2, :])  # (env, e2), each (1, lanes)
+    def load(t):
+        return x_ref[pl.ds(t, 1), :]
 
-    UNROLL = 8  # amortize VMEM traffic/loop overhead (see kernels/iir.py)
-
-    def update(di, st):
+    def step(xv, st):
         env, e2 = st
-        env = jnp.maximum(di, k_rel * env)
+        d = jnp.abs(xv) if absdet else xv
+        env = jnp.maximum(d, k_rel * env)
         e2 = a_att * e2 + c_att * env
-        return e2, (env, e2)
+        return env, e2
 
-    def emit(x_tile, e2t):
-        if curve is None:
-            return e2t
-        if curve_mode == "gain":
-            return _curve_gain(e2t, curve)
-        return _curve_apply(x_tile, e2t, curve)
+    def put(t, xv, e2):
+        if emit == "gain":
+            y_ref[pl.ds(t, 1), :] = _curve_gain(e2, curve)
+        elif emit == "limit":
+            y_ref[pl.ds(t, 1), :] = jnp.clip(
+                xv * _curve_gain(e2, curve), -ceil_amp, ceil_amp)
 
-    def body8(i, st):
-        tile = d_ref[pl.ds(i * UNROLL, UNROLL), :]
-        if has_corr:
-            # inline segment correction on the whole tile (2 wide ops
-            # per 8 samples) — compiled in only on pass B of the
-            # segmented path; the plain path skips the no-op work
-            tile = jnp.maximum(tile,
-                               e_ref[:] * kt_ref[pl.ds(i * UNROLL, UNROLL), :])
-        det = (jnp.abs(tile) if curve is not None and curve_mode == "apply"
-               else tile)
-        ys = []
-        for j in range(UNROLL):
-            y, st = update(det[j : j + 1, :], st)
-            ys.append(y)
-        e2t = jnp.concatenate(ys, axis=0)
-        o_ref[pl.ds(i * UNROLL, UNROLL), :] = emit(tile, e2t)
+    last = n - 1
+
+    def body(i, carry):
+        st, cur = carry[:2], carry[2:]
+        t0 = i * unroll
+        # next step's loads first (clamped at the end: a redundant
+        # in-bounds load instead of a branch)
+        nxt = tuple(load(jnp.minimum(t0 + unroll + j, last))
+                    for j in range(unroll))
+        for j in range(unroll):
+            st = step(cur[j], st)
+            if y_ref is not None:
+                put(t0 + j, cur[j], st[1])
+        return st + nxt
+
+    def body1(t, st):
+        xv = load(t)
+        st = step(xv, st)
+        if y_ref is not None:
+            put(t, xv, st[1])
         return st
 
-    def body1(i, st):
-        di = d_ref[pl.ds(i, 1), :]
-        xi = di
-        if has_corr:
-            di = jnp.maximum(di, e_ref[:] * kt_ref[pl.ds(i, 1), :])
-        if curve is not None and curve_mode == "apply":
-            di = jnp.abs(di)
-        y, st = update(di, st)
-        o_ref[pl.ds(i, 1), :] = emit(xi, y)
-        return st
-
-    # int32 throughout — x64 mode is on package-wide and Mosaic rejects i64
-    rem = jnp.minimum(
-        jnp.int32(tc), jnp.int32(n_total) - t.astype(jnp.int32) * jnp.int32(tc)
-    )
-    full = rem // jnp.int32(UNROLL)
-    state = jax.lax.fori_loop(jnp.int32(0), full, body8, state)
-    env, e2 = jax.lax.fori_loop(full * jnp.int32(UNROLL), rem, body1, state)
-    st_ref[0:1, :] = env
-    st_ref[1:2, :] = e2
-    zf_ref[:] = st_ref[:]
+    st = (init_ref[pl.ds(0, 1), :], init_ref[pl.ds(1, 1), :])
+    nfull = n // unroll
+    if nfull:
+        first = tuple(load(min(j, last)) for j in range(unroll))
+        st = jax.lax.fori_loop(0, nfull, body, st + first)[:2]
+    st = jax.lax.fori_loop(nfull * unroll, n, body1, st)
+    fin_ref[pl.ds(0, 1), :] = st[0]
+    fin_ref[pl.ds(1, 1), :] = st[1]
 
 
-def _env_blk_kernel(coef_ref, init_ref, d_ref, *refs, n_total, tc, B,
-                    has_corr=False, curve=None, curve_mode="apply"):
-    """Block-B lookahead variant of :func:`_env_kernel` (see module
-    docstring "BLOCK LOOKAHEAD"). Exact in exact arithmetic: both
-    recurrences are affine in their semirings — (max, *) for the
-    decaying max, (+, *) for the one-pole — so the per-sample chain
-    collapses to a per-BLOCK chain (B-fold fewer dependent steps) plus
-    vectorized within-block prefix trees whose masking is a plain
-    multiply (identity of both semirings is 0 on the limiter's
-    nonnegative detector)."""
-    if has_corr:
-        kt_ref, e_ref, o_ref, zf_ref, st_ref = refs
-    else:
-        o_ref, zf_ref, st_ref = refs
-    assert not (has_corr and curve is not None and curve_mode == "apply")
-    t = pl.program_id(1)
-
-    @pl.when(t == 0)
-    def _():
-        st_ref[:] = init_ref[:]
-
-    k_rel = coef_ref[0, 0]
-    c_att = coef_ref[0, 1]
-    a_att = 1.0 - c_att
-
-    U = 8  # blocks per chunk (sequential steps per chunk = 2*U)
-    CH = U * B
-    lanes_c = d_ref.shape[1]
-
-    # powers k^1..k^B / a^1..a^B as traced scalars (k may be a runtime
-    # 0.0 on the segmented path's pass B — no exp/log tricks)
-    kp = [None, k_rel]
-    ap = [None, a_att]
-    for _j in range(2, B + 1):
-        kp.append(kp[-1] * k_rel)
-        ap.append(ap[-1] * a_att)
-
-    # (CH, 1) columns: row u*B+j -> k^(j+1) / a^(j+1); and per-KS-level
-    # masked-decay columns k^l * [row-in-block >= l] (the multiply IS
-    # the block-boundary mask). Built once per kernel invocation,
-    # closed over by the chunk loop.
-    rb = jax.lax.broadcasted_iota(jnp.int32, (CH, 1), 0) % jnp.int32(B)
-    kcol = jnp.zeros((CH, 1), jnp.float32)
-    acol = jnp.zeros((CH, 1), jnp.float32)
-    for j in range(B):
-        sel = (rb == j).astype(jnp.float32)
-        kcol = kcol + sel * kp[j + 1]
-        acol = acol + sel * ap[j + 1]
-    levels = []
-    l = 1
-    while l < B:
-        m = (rb >= l).astype(jnp.float32)
-        levels.append((l, m * kp[l], m * ap[l]))
-        l *= 2
-
-    def emit(x_tile, e2t):
-        if curve is None:
-            return e2t
-        if curve_mode == "gain":
-            return _curve_gain(e2t, curve)
-        return _curve_apply(x_tile, e2t, curve)
-
-    def body_chunk(i, st):
-        env_b, e2_b = st  # (1, lanes) each
-        tile = d_ref[pl.ds(i * CH, CH), :]
-        xin = tile
-        if has_corr:
-            tile = jnp.maximum(
-                tile, e_ref[:] * kt_ref[pl.ds(i * CH, CH), :])
-        if curve is not None and curve_mode == "apply":
-            tile = jnp.abs(tile)
-        # within-block decayed prefix max:
-        #   pref[u*B+j] = max_{m<=j} k^(j-m) * d[u*B+m]
-        x = tile
-        for l, km, _am in levels:
-            sh = jnp.concatenate(
-                [jnp.zeros((l, lanes_c), x.dtype), x[:-l]], axis=0)
-            x = jnp.maximum(x, km * sh)
-        pref = x
-        # sequential env carry over U blocks (2 dependent ops/step)
-        carr = []
-        for u in range(U):
-            carr.append(env_b)
-            env_b = jnp.maximum(
-                pref[u * B + B - 1 : u * B + B, :], kp[B] * env_b)
-        carrx = jnp.broadcast_to(
-            jnp.concatenate(carr, axis=0).reshape(U, 1, lanes_c),
-            (U, B, lanes_c)).reshape(CH, lanes_c)
-        envf = jnp.maximum(pref, kcol * carrx)
-        # within-block decayed prefix sum of the envelope:
-        #   y[u*B+j] = sum_{m<=j} a^(j-m) * env[u*B+m]
-        y = envf
-        for l, _km, am in levels:
-            sh = jnp.concatenate(
-                [jnp.zeros((l, lanes_c), y.dtype), y[:-l]], axis=0)
-            y = y + am * sh
-        carr2 = []
-        for u in range(U):
-            carr2.append(e2_b)
-            e2_b = ap[B] * e2_b + c_att * y[u * B + B - 1 : u * B + B, :]
-        carrx2 = jnp.broadcast_to(
-            jnp.concatenate(carr2, axis=0).reshape(U, 1, lanes_c),
-            (U, B, lanes_c)).reshape(CH, lanes_c)
-        e2t = acol * carrx2 + c_att * y
-        o_ref[pl.ds(i * CH, CH), :] = emit(xin, e2t)
-        return env_b, e2_b
-
-    def update(di, st):
-        env, e2 = st
-        env = jnp.maximum(di, k_rel * env)
-        e2 = a_att * e2 + c_att * env
-        return e2, (env, e2)
-
-    def body1(i, st):
-        di = d_ref[pl.ds(i, 1), :]
-        xi = di
-        if has_corr:
-            di = jnp.maximum(di, e_ref[:] * kt_ref[pl.ds(i, 1), :])
-        if curve is not None and curve_mode == "apply":
-            di = jnp.abs(di)
-        y, st = update(di, st)
-        o_ref[pl.ds(i, 1), :] = emit(xi, y)
-        return st
-
-    state = (st_ref[0:1, :], st_ref[1:2, :])
-    rem = jnp.minimum(
-        jnp.int32(tc), jnp.int32(n_total) - t.astype(jnp.int32) * jnp.int32(tc)
-    )
-    full = rem // jnp.int32(CH)
-    state = jax.lax.fori_loop(jnp.int32(0), full, body_chunk, state)
-    env, e2 = jax.lax.fori_loop(full * jnp.int32(CH), rem, body1, state)
-    st_ref[0:1, :] = env
-    st_ref[1:2, :] = e2
-    zf_ref[:] = st_ref[:]
-
-
-@functools.partial(jax.jit, static_argnames=("n", "tc", "interpret", "lanes",
-                                             "block", "curve", "curve_mode"))
-def _envelope_2d_t(dt, coef, initp, kt=None, ep=None, *, n, tc, interpret,
-                   lanes, block=None, curve=None, curve_mode="apply"):
-    """KERNEL-LAYOUT core: ``dt`` is (npad, Rp) time-major padded input
-    (npad = ntc*tc, Rp a multiple of ``lanes``); returns (e2_t (npad,
-    Rp), zf (2, Rp)) in the SAME layout. The segmented path runs both
-    passes through this core so pass A's output feeds pass B directly —
-    no transpose back to (R, n) in between (two full HBM round-trips of
-    the detector array saved, measured the dominant cost at long n).
-
-    ``kt``/``ep``: inline segment correction — the kernel processes
-    ``max(dt[t, r], ep[r] * kt[t])``; None compiles the correction out
-    entirely (the plain path pays zero extra ops).
-    """
-    npad, Rp = dt.shape
-    ntc = npad // tc
-    if block is not None:
-        B = int(block)
-        if B < 2 or B & (B - 1):
-            raise ValueError(f"block={B} must be a power of two >= 2")
-        kern = functools.partial(_env_blk_kernel, n_total=n, tc=tc, B=B,
-                                 has_corr=kt is not None, curve=curve,
-                                 curve_mode=curve_mode)
-    else:
-        kern = functools.partial(_env_kernel, n_total=n, tc=tc,
-                                 has_corr=kt is not None, curve=curve,
-                                 curve_mode=curve_mode)
-    # x64 off during kernel trace — Mosaic rejects i64 index types
+@functools.partial(jax.jit, static_argnames=(
+    "k_rel", "c_att", "absdet", "emit", "curve", "interpret"))
+def _run(xt, init, *, k_rel, c_att, absdet, emit, curve, interpret):
+    """One kernel pass over time-major ``xt`` (n, L) f32 from per-lane
+    states ``init`` (2, L). -> (y (n, L) or None, finals (2, L))."""
+    n, L = xt.shape
+    bl = _BLOCK_LANES
+    Lp = _cdiv(L, bl) * bl
+    if Lp != L:
+        xt = jnp.pad(xt, ((0, 0), (0, Lp - L)))
+        init = jnp.pad(init, ((0, 0), (0, Lp - L)))
+    kern = functools.partial(
+        _kernel, n=n, k_rel=float(k_rel), c_att=float(c_att),
+        absdet=absdet, emit=emit, curve=curve, unroll=_UNROLL)
+    sig = pl.BlockSpec((n, bl), lambda b: (0, b))
+    st = pl.BlockSpec((2, bl), lambda b: (0, b))
+    out_specs = [st]
+    out_shape = [jax.ShapeDtypeStruct((2, Lp), jnp.float32)]
+    if emit != "finals":
+        out_specs = [sig] + out_specs
+        out_shape = [jax.ShapeDtypeStruct((n, Lp), jnp.float32)] + out_shape
+    # index math in int32: the package runs with x64 on
     with jax.enable_x64(False):
-        return _call(kern, coef, initp, dt, kt, ep, Rp, npad, tc, ntc,
-                     interpret, lanes)
+        outs = pl.pallas_call(
+            kern, grid=(Lp // bl,), in_specs=[sig, st],
+            out_specs=out_specs, out_shape=out_shape,
+            compiler_params=plgpu.CompilerParams(num_warps=bl // 32,
+                                                 num_stages=1),
+            interpret=interpret, name=f"xm_envelope_{emit}",
+        )(xt.astype(jnp.float32), init.astype(jnp.float32))
+    y = None if emit == "finals" else outs[0][:, :L]
+    return y, outs[-1][:, :L]
 
 
-def _pad_t(d2d, lanes, tc):
-    """(R, n) -> time-major (npad, Rp) zero-padded kernel layout.
+def _affine_scan(v, p, init):
+    """s[j] = v[j] + p * s[j-1] along the last axis, s[-1] = init."""
+    def comb(lhs, rhs):
+        return rhs[1] * lhs[0] + rhs[0], lhs[1] * rhs[1]
 
-    When no padding is needed the result is a bare transpose — a
-    fusible XLA op (the |x| detector pass and the transpose then run as
-    ONE HBM pass), where the zeros+dynamic_update_slice form always
-    materializes a second full copy. ``_auto_tc`` picks tc to make this
-    the common case."""
-    R, n = d2d.shape
-    Rp = _cdiv(R, lanes) * lanes
-    npad = _cdiv(n, tc) * tc
-    if npad == n and Rp == R:
-        return d2d.T.astype(jnp.float32)
-    dt = jnp.zeros((npad, Rp), jnp.float32)
-    return jax.lax.dynamic_update_slice(dt, d2d.T.astype(jnp.float32), (0, 0))
+    s, pw = jax.lax.associative_scan(comb, (v, jnp.full_like(v, p)),
+                                     axis=-1)
+    return s + pw * init[..., None]
 
 
-def _auto_tc(n: int, tc: int) -> int:
-    """Largest time chunk <= tc that divides n (8-multiple for the f32
-    sublane tile); falls back to tc (ceil-padding) when n has no
-    suitable divisor >= tc//2. An exact divisor keeps _pad_t a bare
-    transpose AND avoids the partial last grid step."""
-    # EVERY return must be a multiple of 8: the (tc, lanes) BlockSpec's
-    # second-minor dim must land on the f32 (8, 128) tile, and Mosaic
-    # rejects it at lowering otherwise (interpret mode does not enforce
-    # tiling, so a caller-supplied tc like 500 used to pass tests and
-    # fail on chip whenever it divided n — review find).
-    tc = max(8, tc - tc % 8)
-    if n % tc == 0:
-        return tc
-    for d in range(tc, tc // 2 - 1, -8):
-        if d > 0 and n % d == 0:
-            return d
-    return tc
+def _rows(x2d, init2, k_rel, c_att, *, absdet, emit, curve, segments,
+          interpret):
+    """Envelope/limiter over rows ``x2d`` (R, n) from states ``init2``
+    (2, R). -> (y (R, n), (env_last, e2_last))."""
+    R, n = x2d.shape
+    S = pick_segments(R, n) if segments is None else int(segments)
+    if S < 1 or n % S:
+        raise ValueError(f"segments={S} must divide n={n} (exact state "
+                         "corrections need equal segments)")
+    seg = n // S
+    # lane r*S + s holds segment s of row r, time-major
+    xt = x2d.reshape(R * S, seg).T
+    run = functools.partial(_run, xt, k_rel=k_rel, c_att=c_att,
+                            absdet=absdet, curve=curve, interpret=interpret)
+    init2 = init2.astype(jnp.float32)
+    if S == 1:
+        init = init2
+    else:
+        # exact incoming states (module docstring "Segments")
+        zero = jnp.zeros((R, S), jnp.float32)
+        _, f1 = run(jnp.zeros((2, R * S), jnp.float32), emit="finals")
+        kp = float(k_rel) ** seg
+        env_end = jax.lax.associative_scan(
+            lambda l, r: (jnp.maximum(r[0], r[1] * l[0]), l[1] * r[1]),
+            (f1[0].reshape(R, S), jnp.full((R, S), kp, jnp.float32)),
+            axis=-1)[0]
+        env_end = jnp.maximum(
+            env_end, (kp ** np.arange(1, S + 1, dtype=np.float64)
+                      ).astype(np.float32) * init2[0][:, None])
+        e_in = jnp.concatenate([init2[0][:, None], env_end[:, :-1]], -1)
+        _, f2 = run(jnp.stack([e_in.reshape(-1), zero.reshape(-1)]),
+                    emit="finals")
+        ap = (1.0 - float(c_att)) ** seg
+        e2_end = _affine_scan(f2[1].reshape(R, S), ap, init2[1])
+        s_in = jnp.concatenate([init2[1][:, None], e2_end[:, :-1]], -1)
+        init = jnp.stack([e_in.reshape(-1), s_in.reshape(-1)])
+    y, fin = run(init, emit=emit)
+    last = fin.reshape(2, R, S)[:, :, -1]
+    return y.T.reshape(R, n), (last[0], last[1])
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("time_chunk", "interpret", "lanes",
-                                    "n_valid", "block", "curve",
-                                    "curve_mode"))
-def _envelope_2d(d2d, coef, init, time_chunk=2048,
-                 interpret=False, lanes=LANES, n_valid=None, block=None,
-                 curve=None, curve_mode="apply"):
-    """d2d: (R, n) f32 detector rows. init: (2, R). -> (e2 (R, n), zf (2, R)).
-
-    Row-major convenience wrapper over :func:`_envelope_2d_t` (the
-    segmented path uses the core directly for its corrected pass B).
-    ``n_valid``: treat only the first n_valid columns as signal (d2d
-    may be the padded output of an upstream kernel — the excess
-    columns are sliced away here, which fuses with the transpose
-    instead of costing a standalone trim pass upstream); outputs are
-    (R, n_valid).
-    """
-    R, n = d2d.shape
-    if n_valid is not None:
-        n = int(n_valid)
-    Rp = _cdiv(R, lanes) * lanes
-    tc = time_chunk
-    npad = _cdiv(n, tc) * tc
-    if d2d.shape[1] > npad:
-        # keep up to npad real columns (the [n, npad) tail is ignored
-        # by the kernel's n_total loop bound)
-        d2d = d2d[:, :npad]
-
-    dt = _pad_t(d2d, lanes, tc)
-    initp = jnp.zeros((2, Rp), jnp.float32)
-    initp = jax.lax.dynamic_update_slice(initp, init.astype(jnp.float32), (0, 0))
-    e2, zf = _envelope_2d_t(dt, coef, initp, n=n, tc=tc,
-                            interpret=interpret, lanes=lanes, block=block,
-                            curve=curve, curve_mode=curve_mode)
-    return e2[:n, :R].T, zf[:, :R]
-
-
-def _call(kern, coef, initp, dt, kt, ep, Rp, npad, tc, ntc, interpret, lanes):
-    corr_args, corr_specs = (), []
-    if kt is not None:
-        corr_args = (kt, ep)
-        corr_specs = [
-            pl.BlockSpec((tc, 1), lambda b, t: (t, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, lanes), lambda b, t: (0, b), memory_space=pltpu.VMEM),
-        ]
-    return pl.pallas_call(
-        kern,
-        grid=(Rp // lanes, ntc),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # coef (1, 2)
-            pl.BlockSpec((2, lanes), lambda b, t: (0, b), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tc, lanes), lambda b, t: (t, b), memory_space=pltpu.VMEM),
-        ] + corr_specs,
-        out_specs=[
-            pl.BlockSpec((tc, lanes), lambda b, t: (t, b), memory_space=pltpu.VMEM),
-            pl.BlockSpec((2, lanes), lambda b, t: (0, b), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((npad, Rp), jnp.float32),
-            jax.ShapeDtypeStruct((2, Rp), jnp.float32),
-        ],
-        scratch_shapes=[pltpu.VMEM((2, lanes), jnp.float32)],
-        interpret=interpret,
-    )(coef.astype(jnp.float32), initp, dt, *corr_args)
-
-
-def _pick_lanes(R: int) -> int:
-    """Widest lane tile that the rows fill without padding waste:
-    interleaving independent chains hides recurrence latency, but a
-    mostly-empty tile pays issue slots for dead lanes."""
-    lanes = LANES
-    while lanes < _LANES_TARGET and R >= 2 * lanes:
-        lanes *= 2
-    if lanes < _LANES_TARGET and R >= (3 * lanes) // 2:
-        lanes *= 2  # 3/4-full wide tile still wins
-    return lanes
-
-
-# ---------------------------------------------------------------------------
-# Time segmentation for small batches — the envelope twin of
-# kernels/iir.py's segmented sosfilt (see the long comment there): rows
-# R < the lane target waste issue slots, so each row splits into S
-# segments run zero-init in parallel, then exact cross-segment
-# corrections:
-#
-#   decaying max is affine in the (max, *) semiring:
-#       env[t] = max(env0[t], k^(t+1) * env_in)
-#   the one-pole smoother is affine in (+, *):
-#       e2[t]  = e2_0[t] + a^(t+1) * s_in
-#
-# (the same summaries parallel/sp.py chains across CHIPS, here chained
-# across lane segments). Two kernel passes (max-only via c_att=1, then
-# one-pole-only via k_rel=0, with the env correction applied INLINE on
-# pass B's read — see the module docstring) at S-fold lane parallelism.
-# ---------------------------------------------------------------------------
-
-
-def _decay_cut(r: float, n: int) -> int:
-    """Samples until r^t < 1e-40 (below any f32 signal's resolution):
-    the correction window is the filter's memory, not the segment."""
-    if r <= 0.0:
-        return 1
-    if r >= 1.0:
-        return n
-    return min(n, int(np.ceil(np.log(1e-40) / np.log(r))))
-
-
-class _SegGeom:
-    """Shared geometry + pass-A products of the segmented envelope
-    (single source of truth for `_envelope_seg` and `_linked_seg_gain`
-    — the two pass-B strategies must never drift on the pass-A
-    machinery, the k^t underflow handling, or the t_cut truncation)."""
-
-    __slots__ = ("R", "n", "seglen", "RS", "lanes", "Rp", "npad",
-                 "zerosp", "env0_t", "e_last", "ep", "ktab")
-
-
-def _seg_pass_a(d2d, k_rel, init2, S_seg, tc, interpret, block):
-    """Segmented pass A (decaying max, zero-init) + the cross-segment
-    max chain + the inline-correction inputs shared by both pass-B
-    strategies. Both passes run in KERNEL LAYOUT (time-major
-    (npad, Rp)): pass A's output feeds pass B directly, so the
-    detector array crosses HBM in (R, n) layout exactly twice
-    (transpose in, transpose out). The k^t correction column
-    underflows to 0 once below f32 range, which is exact (the true
-    correction is below denormal resolution there)."""
-    g = _SegGeom()
-    g.R, g.n = d2d.shape
-    g.seglen = g.n // S_seg
-    g.RS = g.R * S_seg
-    g.lanes = _pick_lanes(g.RS)
-    g.Rp = _cdiv(g.RS, g.lanes) * g.lanes
-    g.npad = _cdiv(g.seglen, tc) * tc
-    dt = _pad_t(d2d.reshape(g.RS, g.seglen), g.lanes, tc)
-    g.zerosp = jnp.zeros((2, g.Rp), jnp.float32)
-
-    # pass A: decaying max only (c_att=1 -> e2 == env), no correction
-    coef_a = jnp.array([[k_rel, 1.0]], jnp.float32)
-    g.env0_t, zf_a = _envelope_2d_t(dt, coef_a, g.zerosp, n=g.seglen,
-                                    tc=tc, interpret=interpret,
-                                    lanes=g.lanes, block=block)
-    envf = zf_a[0, :g.RS].reshape(g.R, S_seg)
-    kp = jnp.float32(float(k_rel) ** g.seglen)
-
-    def chain_max(e, vk):
-        return jnp.maximum(vk, kp * e), e
-
-    g.e_last, e_ins = jax.lax.scan(chain_max,
-                                   init2[0].astype(jnp.float32),
-                                   jnp.moveaxis(envf, 1, 0))
-    t1k = np.arange(1, g.seglen + 1, dtype=np.float64)
-    with np.errstate(under="ignore"):
-        ktab = np.zeros((g.npad, 1), np.float32)
-        ktab[:g.seglen, 0] = (float(k_rel) ** t1k).astype(np.float32)
-    g.ktab = jnp.asarray(ktab)
-    e_in_rows = jnp.moveaxis(e_ins, 0, 1).reshape(g.RS)
-    g.ep = jax.lax.dynamic_update_slice(
-        jnp.zeros((1, g.Rp), jnp.float32),
-        e_in_rows[None].astype(jnp.float32), (0, 0))
-    return g
-
-
-def _envelope_seg(d2d, k_rel, c_att, init2, S_seg, tc, interpret, block=None):
-    sg = _seg_pass_a(d2d, k_rel, init2, S_seg, tc, interpret, block)
-    R, n, seglen, RS, Rp = sg.R, sg.n, sg.seglen, sg.RS, sg.Rp
-    lanes, zerosp, env0_t = sg.lanes, sg.zerosp, sg.env0_t
-    e_last, ep, ktab = sg.e_last, sg.ep, sg.ktab
-    # pass B: one-pole only (k_rel=0 passes the input straight through);
-    # the env correction max(env0[t], E * k^(t+1)) is applied INLINE on
-    # the kernel's read — no (R, n) corrected array hits HBM.
-    coef_b = jnp.array([[0.0, c_att]], jnp.float32)
-    e2_t, zf_b = _envelope_2d_t(env0_t, coef_b, zerosp, ktab,
-                                ep, n=seglen, tc=tc, interpret=interpret,
-                                lanes=lanes, block=block)
-    e2f = zf_b[1, :RS].reshape(R, S_seg)
-    a = 1.0 - float(c_att)
-    ap = jnp.float32(a ** seglen)
-
-    def chain_sum(s, vk):
-        return vk + ap * s, s
-
-    s_last, s_ins = jax.lax.scan(chain_sum, init2[1].astype(jnp.float32),
-                                 jnp.moveaxis(e2f, 1, 0))
-    ac = _decay_cut(a, seglen)
-    t1a = np.arange(1, ac + 1, dtype=np.float64)
-    atab = jnp.asarray((a ** t1a).astype(np.float32))
-    s_in_cols = jnp.zeros((Rp,), jnp.float32)
-    s_in_cols = jax.lax.dynamic_update_slice(
-        s_in_cols, jnp.moveaxis(s_ins, 0, 1).reshape(RS), (0,))
-    # cross-segment one-pole correction applied in kernel layout, then
-    # ONE transpose back to row-major
-    e2_t = e2_t.at[:ac, :].add(atab[:, None] * s_in_cols[None, :])
-    e2 = e2_t[:seglen, :RS].T.reshape(R, n)
-    return e2, jnp.stack([e_last, s_last])
-
-
-def _linked_seg_gain(d2d, k_rel, c_att, init2, S_seg, tc, interpret, block,
-                     curve):
-    """Segmented envelope with pass B emitting the soft-knee GAIN
-    in-kernel (the linked-stereo fused limiter's core). Differences vs
-    :func:`_envelope_seg`:
-
-    - pass B runs with the EXACT per-(row, segment) one-pole init
-      ``s_in`` instead of zero init + post-kernel correction, so the
-      static curve can be evaluated on the tile while it is still in
-      VMEM (the post-hoc correction made that impossible — the old
-      assert in ``_env_kernel``);
-    - ``s_in`` comes from a decay-window dot: the zero-init e2 segment
-      final only depends on the last ``_decay_cut(a)`` corrected
-      envelope samples (a^t below any f32 signal's resolution past
-      that — the same truncation the post-hoc ``atab`` used), so ONE
-      (ac,) @ (ac, Rp) einsum replaces a full summary pass;
-    - the kernel writes g, not e2: the caller applies y = clip(x*g) in
-      XLA where the (B, ch, n) signal already lives row-major — the
-      standalone e2-correction + transpose-back passes disappear and
-      the exp/log transcendentals move into the latency-bound kernel.
-
-    Returns (g (R, n) row-major, zf (2, R) = (env_last, e2_last)).
-    """
-    sg = _seg_pass_a(d2d, k_rel, init2, S_seg, tc, interpret, block)
-    R, n, seglen, RS = sg.R, sg.n, sg.seglen, sg.RS
-    lanes, zerosp, env0_t = sg.lanes, sg.zerosp, sg.env0_t
-    e_last, ep, ktab = sg.e_last, sg.ep, sg.ktab
-
-    # s_in: zero-init e2 segment finals via the decay-window dot, then
-    # the same cross-segment (+, *) chain as _envelope_seg
-    a = 1.0 - float(c_att)
-    ac = _decay_cut(a, seglen)
-    with np.errstate(under="ignore"):
-        avec = (a ** np.arange(ac - 1, -1, -1, dtype=np.float64)
-                ).astype(np.float32)
-    tail = env0_t[seglen - ac:seglen, :]
-    tail_corr = jnp.maximum(tail, ep * ktab[seglen - ac:seglen, :])
-    e2_0f = float(c_att) * jnp.einsum(
-        "t,tr->r", jnp.asarray(avec), tail_corr,
-        precision=jax.lax.Precision.HIGHEST)
-    e2f = e2_0f[:RS].reshape(R, S_seg)
-    ap = jnp.float32(a ** seglen)
-
-    def chain_sum(s, vk):
-        return vk + ap * s, s
-
-    s_last, s_ins = jax.lax.scan(chain_sum, init2[1].astype(jnp.float32),
-                                 jnp.moveaxis(e2f, 1, 0))
-    s_in_rows = jnp.moveaxis(s_ins, 0, 1).reshape(RS)
-    initp = jax.lax.dynamic_update_slice(
-        zerosp, s_in_rows[None].astype(jnp.float32), (1, 0))
-
-    # pass B fused: one-pole over the inline-corrected envelope with
-    # the exact init, soft-knee gain emitted in-kernel
-    coef_b = jnp.array([[0.0, c_att]], jnp.float32)
-    g_t, _ = _envelope_2d_t(env0_t, coef_b, initp, ktab, ep, n=seglen,
-                            tc=tc, interpret=interpret, lanes=lanes,
-                            block=block, curve=curve, curve_mode="gain")
-    g = g_t[:seglen, :RS].T.reshape(R, n)
-    return g, jnp.stack([e_last, s_last])
-
-
-def linked_limiter_pallas(x, k_rel: float, c_att: float, threshold_db: float,
-                          knee_db: float = 6.0, ceiling_db: float = 0.0,
-                          ratio: float = float("inf"), makeup_db: float = 0.0,
-                          init=None, time_chunk=2048, interpret=False,
-                          n_valid=None, block=None, segments=None):
-    """CHANNEL-LINKED fused soft-knee limiter of ``x`` shaped
-    (..., ch, n): one gain per time step from the linked ``max_ch |x|``
-    detector, applied to every channel (ops.limiter pinned semantics —
-    the stereo production case, SURVEY.md §2.1 limiter row).
-
-    The detector stays an XLA pass ON PURPOSE: it compresses
-    (..., ch, n) to (..., n) BEFORE the expensive time-major relayout,
-    so reading the channel planes inside the kernel would cost ~4/3
-    the HBM traffic of detect-then-transpose at ch=2 (measured round-5
-    design note). What IS fused: the soft-knee curve runs in-kernel on
-    the VMEM tile (``curve_mode="gain"``), with the segmented path
-    running pass B on an exact carried init (see
-    :func:`_linked_seg_gain`) — the standalone e2-correction +
-    transpose-back + XLA transcendental passes all disappear; the
-    final y = clip(x*g) is one fused row-major multiply.
-
-    Matches ``ops.limiter.limiter`` to f32 rounding (exp/log vs
-    log10/power — NOT bit-exact). Returns (y (..., ch, n_valid or n),
-    (env_last, sm_last)) with state shaped (...,).
-    """
-    from xmtpu.kernels.iir import pick_segments
-    from xmtpu.ops.limiter import _knee_slope
-
-    curve = (float(threshold_db), float(knee_db), float(ceiling_db),
-             _knee_slope(ratio), float(makeup_db))
-    x = jnp.asarray(x)
-    if x.ndim < 2:
-        raise ValueError(
-            f"linked limiter needs (..., ch, n), got shape {x.shape}")
-    batch = x.shape[:-2]
-    if n_valid is not None:
-        nv = int(n_valid)
-        if nv > x.shape[-1]:
-            raise ValueError(
-                f"n_valid={nv} exceeds x.shape[-1]={x.shape[-1]}")
-        if nv < 1:
-            raise ValueError(f"n_valid={nv} must be >= 1")
-    n = x.shape[-1] if n_valid is None else int(n_valid)
-    xf = x.astype(jnp.float32)
-    if n < x.shape[-1]:
-        xf = xf[..., :n]  # lazy: fuses into the detector reduce
-    d = jnp.max(jnp.abs(xf), axis=-2)  # linked channels: (..., n)
-    R = int(np.prod(batch)) if batch else 1
-    d2d = d.reshape(R, n)
+def _init2(init, batch, R):
     if init is None:
-        init2 = jnp.zeros((2, R), jnp.float32)
-    else:
-        init2 = jnp.stack(
-            [jnp.asarray(init[0]).reshape(R),
-             jnp.asarray(init[1]).reshape(R)])
-    if block is None:
-        block = DEFAULT_BLOCK
-    elif int(block) == 1:
-        block = None
-    S_seg = (pick_segments(R, n, lanes=_LANES_TARGET)
-             if segments is None else int(segments))
-    if S_seg > 1 and n % S_seg:
-        raise ValueError(
-            f"segments={S_seg} does not divide n={n} (exact state "
-            "corrections need equal segments)")
-    if S_seg > 1:
-        g2, zf = _linked_seg_gain(d2d, k_rel, c_att, init2, S_seg,
-                                  _auto_tc(n // S_seg, time_chunk),
-                                  interpret, block, curve)
-    else:
-        coef = jnp.array([[k_rel, c_att]], jnp.float32)
-        g2, zf = _envelope_2d(d2d, coef, init2,
-                              time_chunk=_auto_tc(n, time_chunk),
-                              interpret=interpret, lanes=_pick_lanes(R),
-                              block=block, curve=curve, curve_mode="gain")
-    g = g2.reshape(*batch, 1, n)
-    ceil_amp = 10.0 ** (float(ceiling_db) / 20.0)
-    y = jnp.clip(xf * g, -ceil_amp, ceil_amp)
-    return (y.astype(x.dtype),
-            (zf[0].reshape(batch), zf[1].reshape(batch)))
+        return jnp.zeros((2, R), jnp.float32)
+    return jnp.stack([jnp.asarray(init[0], jnp.float32).reshape(R),
+                      jnp.asarray(init[1], jnp.float32).reshape(R)])
 
 
-def envelope_pallas(d, k_rel: float, c_att: float, init=None, time_chunk=2048,
-                    interpret=False, segments=None, n_valid=None, block=None):
-    """Smoothed limiter envelope of detector ``d`` shaped (..., n).
-
-    ``init``: (env_last, e2_last) each shaped (...,) or None. Returns
-    (e2 (..., n), (env_last, e2_last)). f32 compute. ``segments``:
-    small-batch time segmentation (None = auto; exact, see above).
-
-    ``n_valid``: d's last axis is the PADDED output of an upstream
-    kernel (e.g. fftconv ``trim=False``) and only the first n_valid
-    samples are signal — outputs are (..., n_valid) and the upstream
-    trim pass is saved (its slice fuses here).
-
-    ``block``: block-lookahead factor. Both recurrences are affine in
-    their semirings, so block-B carries are exact: B-fold fewer
-    dependent steps traded for vectorized within-block prefix trees
-    (see _env_blk_kernel). ``None`` = the chip-measured default
-    (block=8: headline chain 224.2k -> 243.4k a-s/s, 2026-08-19 probe;
-    16 measured equal within run spread); ``1`` = explicit per-sample
-    recurrence; otherwise a power of two >= 2. Tiny inputs are safe at
-    any block: chunks shorter than U*B fall through to the kernel's
-    per-sample remainder loop.
-
-    PRECONDITION: ``d`` and ``init`` must be NONNEGATIVE (true for the
-    limiter's |x| detector). The max-semiring corrections compose with
-    the zero-initialized kernel pass, which floors the envelope at 0 —
-    a negative carried state would be clamped on the segmented path.
-    """
-    from xmtpu.kernels.iir import pick_segments
-
-    if block is None:
-        block = DEFAULT_BLOCK
-    elif int(block) == 1:
-        block = None  # explicit per-sample recurrence
-    d = jnp.asarray(d)
-    batch = d.shape[:-1]
-    if n_valid is not None and int(n_valid) > d.shape[-1]:
-        # an oversized n_valid would silently zero-fill the missing
-        # tail (and under-attenuate it) — fail loudly instead
-        raise ValueError(
-            f"n_valid={int(n_valid)} exceeds d.shape[-1]={d.shape[-1]}")
-    n = d.shape[-1] if n_valid is None else int(n_valid)
-    R = int(np.prod(batch)) if batch else 1
-    d2d = d.reshape(R, d.shape[-1])
-    if init is None:
-        init2 = jnp.zeros((2, R), jnp.float32)
-    else:
-        init2 = jnp.stack(
-            [jnp.asarray(init[0]).reshape(R), jnp.asarray(init[1]).reshape(R)]
-        )
-    S_seg = (pick_segments(R, n, lanes=_LANES_TARGET)
-             if segments is None else int(segments))
-    if S_seg > 1 and n % S_seg:
-        raise ValueError(
-            f"segments={S_seg} does not divide n={n} (exact state "
-            "corrections need equal segments)")
-    if S_seg > 1:
-        if d2d.shape[1] != n:
-            d2d = d2d[:, :n]  # materialize: segmentation reshapes (R, n)
-        e2, zf = _envelope_seg(d2d, k_rel, c_att, init2, S_seg,
-                               _auto_tc(n // S_seg, time_chunk), interpret,
-                               block=block)
-    else:
-        coef = jnp.array([[k_rel, c_att]], jnp.float32)
-        e2, zf = _envelope_2d(d2d, coef, init2,
-                              time_chunk=_auto_tc(n, time_chunk),
-                              interpret=interpret, lanes=_pick_lanes(R),
-                              n_valid=(None if d2d.shape[1] == n else n),
-                              block=block)
-    return (
-        e2.reshape(*batch, n).astype(d.dtype),
-        (zf[0].reshape(batch), zf[1].reshape(batch)),
-    )
-
-
-def limiter_pallas(x, k_rel: float, c_att: float, threshold_db: float,
+def limiter_kernel(x, k_rel: float, c_att: float, threshold_db: float,
                    knee_db: float = 6.0, ceiling_db: float = 0.0,
                    ratio: float = float("inf"), makeup_db: float = 0.0,
-                   init=None, time_chunk=2048, interpret=False,
-                   n_valid=None, block=None):
-    """FUSED soft-knee limiter of SIGNED ``x`` shaped (..., n): detector
-    |x|, envelope recurrences, static gain curve and ceiling clamp all
-    inside ONE kernel pass (ops.limiter steps 1-5 for the mono/linked
-    single-channel case).
+                   init=None, segments=None, interpret: bool = False):
+    """Soft-knee limiter of ``x`` shaped (..., ch, n), channels linked
+    (``ops.limiter`` pinned semantics, f32, exp/log in the curve).
 
-    Why: the unfused chain re-reads both ``x`` and the materialized
-    envelope from HBM in the XLA gain pass (plus writes/reads the
-    (R, n) envelope array itself); here the gain applies to the tile
-    while it is still in VMEM — the envelope never touches HBM. The
-    trade is in-kernel exp/log transcendentals instead of overlappable
-    XLA elementwise work, so the CHAIN default flips only on a bench.py
-    win (CLAUDE.md rule).
-
-    Semantics match ``ops.limiter.limiter`` with a length-1 channel
-    axis (same curve constants, f32 compute) to f32 rounding — NOT
-    bit-exact (exp/log vs log10/power). Returns (y (..., n_valid or n),
-    (env_last, e2_last)).
-
-    Falls back to the unfused envelope + XLA curve when the batch is
-    small enough to take the time-segmented path (the segmented pass-B
-    state correction happens AFTER the kernel, so the in-kernel curve
-    would read a pre-correction envelope there).
+    One channel: detector, envelope, gain and clamp all run in the
+    kernel's output pass, reading ``x`` and writing ``y``. Several
+    channels: the linked detector ``max_ch |x|`` is one XLA reduction,
+    the kernel emits the gain, and XLA applies it to every channel.
+    Returns (y, (env_last, e2_last)) with states shaped (...,).
     """
-    from xmtpu.ops.limiter import _knee_slope, apply_gain_curve
-
     curve = (float(threshold_db), float(knee_db), float(ceiling_db),
              _knee_slope(ratio), float(makeup_db))
     x = jnp.asarray(x)
-    batch = x.shape[:-1]
-    if n_valid is not None and int(n_valid) > x.shape[-1]:
-        raise ValueError(
-            f"n_valid={int(n_valid)} exceeds x.shape[-1]={x.shape[-1]}")
-    n = x.shape[-1] if n_valid is None else int(n_valid)
+    batch, ch, n = x.shape[:-2], x.shape[-2], x.shape[-1]
     R = int(np.prod(batch)) if batch else 1
-    from xmtpu.kernels.iir import pick_segments
-
-    if block is None:
-        block = DEFAULT_BLOCK
-    elif int(block) == 1:
-        block = None
-    if pick_segments(R, n, lanes=_LANES_TARGET) > 1:
-        e2, st = envelope_pallas(
-            jnp.abs(x), k_rel, c_att, init=init, time_chunk=time_chunk,
-            interpret=interpret, n_valid=n_valid,
-            block=(1 if block is None else block))
-        y = apply_gain_curve(
-            x[..., None, :n].astype(jnp.float32), e2.astype(jnp.float32),
-            threshold_db, knee_db, ceiling_db, ratio, makeup_db)[..., 0, :]
-        return y.astype(x.dtype), st
-    x2d = x.reshape(R, x.shape[-1])
-    if init is None:
-        init2 = jnp.zeros((2, R), jnp.float32)
+    xf = x.astype(jnp.float32)
+    kw = dict(curve=curve, segments=segments, interpret=interpret)
+    init2 = _init2(init, batch, R)
+    if ch == 1:
+        y, (el, sl) = _rows(xf.reshape(R, n), init2, k_rel, c_att,
+                            absdet=True, emit="limit", **kw)
+        y = y.reshape(x.shape)
     else:
-        init2 = jnp.stack(
-            [jnp.asarray(init[0]).reshape(R), jnp.asarray(init[1]).reshape(R)]
-        )
-    coef = jnp.array([[k_rel, c_att]], jnp.float32)
-    y, zf = _envelope_2d(x2d, coef, init2,
-                         time_chunk=_auto_tc(n, time_chunk),
-                         interpret=interpret, lanes=_pick_lanes(R),
-                         n_valid=(None if x2d.shape[1] == n else n),
-                         block=block, curve=curve)
-    return (
-        y.reshape(*batch, n).astype(x.dtype),
-        (zf[0].reshape(batch), zf[1].reshape(batch)),
-    )
+        d = jnp.max(jnp.abs(xf), axis=-2).reshape(R, n)
+        g, (el, sl) = _rows(d, init2, k_rel, c_att, absdet=False,
+                            emit="gain", **kw)
+        ceil_amp = 10.0 ** (float(ceiling_db) / 20.0)
+        y = jnp.clip(xf * g.reshape(*batch, 1, n), -ceil_amp, ceil_amp)
+    return y.astype(x.dtype), (el.reshape(batch), sl.reshape(batch))

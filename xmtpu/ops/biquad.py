@@ -4,23 +4,24 @@ Reference analogue: the equalizer C loop (cascaded 2nd-order IIR
 sections, RBJ-style peaking/shelf, ``src/effects/`` [upstream, SURVEY.md
 §2.1]; 5-band per ``BASELINE.json:9``).
 
-TPU-native design (SURVEY.md §7.3/§7.4 "IIR on a SIMD machine"):
+Design (SURVEY.md §7.3/§7.4 "IIR on a SIMD machine"):
 
 * A biquad in transposed direct form II is a 2-state affine recurrence
   ``z[n] = A z[n-1] + g x[n]``, ``y[n] = b0 x[n] + z1[n-1]``. The scan
   over affine maps ``(M, v)`` with combine ``(M2 M1, M2 v1 + v2)`` is
   associative -> ``jax.lax.associative_scan`` gives log-depth parallel
-  IIR on the VPU.
+  IIR as elementwise device code.
 * The 2x2 combines are written as **scalar arithmetic, never matmul**:
-  TPU default-precision matmul computes in bf16, which pushes
-  near-unit-circle poles outside the unit circle -> NaN (measured,
-  SURVEY.md §7.4①).
+  a reduced-precision matrix product (TF32 is the GPU's f32 default)
+  can push near-unit-circle poles outside the unit circle -> NaN
+  (SURVEY.md §7.4①).
 * State runs in **float64** (f32 I/O): f32 scan arithmetic floors at
   -77 dB vs the f64 oracle, just missing the -80 dB target; f64 reaches
   -152 dB at negligible cost (measured, SURVEY.md §7.4②).
 
-The sequential-time Pallas kernel twin for the batched mode lives in
-``xmtpu.kernels``; this module is the oracle-grade op.
+This module is the oracle-grade op and the only IIR engine; on the
+card's engine an EQ next to a reverb folds into the reverb's FIR
+instead (``graph.fx`` LTI fold).
 """
 
 from __future__ import annotations
@@ -152,8 +153,9 @@ def eq_sos(bands, sr: int) -> np.ndarray:
 
 
 def _affine_combine(lhs, rhs):
-    """Compose affine maps z -> M z + v: rhs AFTER lhs. Scalar VPU math only
-    (never einsum/matmul — bf16 MXU destabilizes IIR poles, SURVEY.md §7.4①)."""
+    """Compose affine maps z -> M z + v: rhs AFTER lhs. Scalar math only
+    (never einsum/matmul — a reduced-precision product destabilizes IIR
+    poles, SURVEY.md §7.4①)."""
     lm11, lm12, lm21, lm22, lv1, lv2 = lhs
     rm11, rm12, rm21, rm22, rv1, rv2 = rhs
     return (
@@ -277,7 +279,7 @@ def sos_impulse_np(sos, tol: float = 1e-6, max_len: int = 1 << 21):
     exact IIR is ``||x||_inf * sum(|h[cut:]|) <= tol * sum(|h|)`` —
     the default 1e-6 is a -120 dB budget, far under the chain's -80 dB
     gate. This is what lets the fx graph fold an EQ into an adjacent
-    FIR reverb and run the whole LTI run as ONE MXU convolution
+    FIR reverb and run the whole LTI run as ONE FFT convolution
     (``graph.fx`` LTI fold; reference analogue: the separate EQ and
     reverb loops of the voice chain, SURVEY.md §2.1).
 

@@ -24,10 +24,10 @@ Pinned semantics (the numpy oracle mirrors these exactly):
    the "no sample above ceiling" property exact (SURVEY.md §4.2) while
    the soft path does the musical work.
 
-TPU notes: both scans run with float64 state (f32 floors at -77 dB,
-SURVEY.md §7.4②) and scalar VPU arithmetic. No lookahead (the reference
-has none); attack smoothing briefly under-estimates the envelope on
-transients, which the clamp covers.
+The XLA engine runs both recurrences as float64 associative scans; the
+card's engine runs them as one f32 per-lane loop (``kernels/envelope.py``).
+No lookahead (the reference has none); attack smoothing briefly
+under-estimates the envelope on transients, which the clamp covers.
 """
 
 from __future__ import annotations
@@ -37,6 +37,8 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from xmtpu import engine as _engine
 
 _EPS = 1e-12
 
@@ -131,9 +133,7 @@ def apply_gain_curve(x, e2, threshold_db: float, knee_db: float = 6.0,
                      makeup_db: float = 0.0):
     """Steps 4-5 of the pinned limiter math: soft-knee static curve on
     the smoothed envelope ``e2`` (..., n), gain applied to ``x``
-    (..., ch, n), safety clamp. Elementwise — fuses in XLA. Split out so
-    fused kernels that produce ``e2`` in-kernel (``kernels.eq_env``)
-    share the exact same curve as :func:`limiter`."""
+    (..., ch, n), safety clamp. Elementwise — fuses in XLA."""
     level_db = 20.0 * jnp.log10(jnp.maximum(e2, _EPS))
     g = jnp.power(
         10.0,
@@ -153,12 +153,9 @@ def limiter(
     release_ms: float = 100.0,
     ceiling_db: float = 0.0,
     state=None,
-    backend: str = "scan",
+    backend: str = "xla",
     ratio: float = float("inf"),
     makeup_db: float = 0.0,
-    envelope_block: int | None = None,
-    n_valid: int | None = None,
-    linked_fuse: bool = False,
 ):
     """Soft-knee limit ``x`` shaped (..., channels, n). Jittable.
 
@@ -167,83 +164,31 @@ def limiter(
     shaped (...,), carried across streaming blocks (SURVEY.md §3.2
     state list).
 
-    ``backend``: "scan" = f64 associative scans (oracle-grade; large
-    unrolled HLO — slow to compile at long n on the remote TPU
-    compiler); "pallas" = sequential f32 Pallas kernel (tiny compile,
-    batch-parallel — the 256-clip batch path, SURVEY.md §7.3).
-
-    ``envelope_block``: power-of-two block-lookahead factor for the
-    pallas backend's envelope recurrences (kernels/envelope.py "BLOCK
-    LOOKAHEAD"); None = chip-measured default (8), 1 = explicit
-    per-sample. Ignored by the scan backend.
-
-    ``n_valid``: x's last axis is the hop-padded output of an upstream
-    kernel (``kernels.fftconv`` ``trim=False``) and only the first
-    n_valid samples are signal; outputs are (..., ch, n_valid). The
-    slice is applied lazily up front, so it FUSES into the detector
-    abs-reduce and the gain multiply instead of the producer paying a
-    standalone trim+relayout pass (XProf at the config-3 shape: the
-    FusedLTI->limiter trim/reshape/copy was ~0.6 ms of a ~3.5 ms
-    device step).
-
-    ``linked_fuse`` (pallas backends only; ignored by scan): evaluate
-    the soft-knee curve IN-KERNEL on the channel-linked envelope
-    (``kernels.envelope.linked_limiter_pallas``) — same math to f32
-    rounding (exp/log vs log10/power), fewer HBM passes. Opt-in until
-    a chip bench flips it (CLAUDE.md measured-defaults rule).
+    ``backend``: an engine name (``xmtpu.engine``). "xla" = float64
+    associative scans (oracle-grade); "gpu" = the f32 Pallas Triton
+    kernel of ``kernels/envelope.py`` with the curve applied in the
+    kernel ("gpu_interpret" runs it in interpret mode); "auto" = the
+    platform's engine.
     """
+    eng, interpret = _engine.resolve(backend)
     k_rel = _release_coeff(release_ms, sr)
     c_att = _attack_coeff(attack_ms, sr)
     in_dtype = x.dtype
-    if linked_fuse and backend in ("pallas", "pallas_interpret"):
-        from xmtpu.kernels.envelope import linked_limiter_pallas
+    if eng == _engine.GPU:
+        from xmtpu.kernels.envelope import limiter_kernel
 
-        bshape = x.shape[:-2]
-        if state is None:
-            z = jnp.zeros(bshape, jnp.float32)
-            state = (z, z)
-        init = tuple(jnp.asarray(s, jnp.float32) for s in state)
-        y, st = linked_limiter_pallas(
-            x.astype(jnp.float32), k_rel, c_att, threshold_db,
-            knee_db=knee_db, ceiling_db=ceiling_db, ratio=ratio,
-            makeup_db=makeup_db, init=init,
-            interpret=(backend == "pallas_interpret"),
-            n_valid=n_valid, block=envelope_block)
-        return y.astype(in_dtype), st
-    work = jnp.float32 if backend.startswith("pallas") else jnp.float64
-    xf = x.astype(work)
-    if n_valid is not None:
-        nv = int(n_valid)
-        if nv > x.shape[-1]:
-            raise ValueError(
-                f"n_valid={nv} exceeds x.shape[-1]={x.shape[-1]}")
-        if nv < 1:
-            # a negative/zero n_valid would silently slice from the
-            # wrong end (n_valid=-1 returns n-1 samples, 0 an empty
-            # array) instead of failing the caller's geometry bug
-            raise ValueError(f"n_valid={nv} must be >= 1")
-        if nv < x.shape[-1]:
-            xf = xf[..., :nv]  # lazy: consumers fuse the slice
+        return limiter_kernel(
+            x, k_rel, c_att, threshold_db, knee_db=knee_db,
+            ceiling_db=ceiling_db, ratio=ratio, makeup_db=makeup_db,
+            init=state, interpret=interpret)
+    xf = x.astype(jnp.float64)
     d = jnp.max(jnp.abs(xf), axis=-2)  # linked channels: (..., n)
     if state is None:
-        z = jnp.zeros(d.shape[:-1], work)
+        z = jnp.zeros(d.shape[:-1], jnp.float64)
         state = (z, z)
-    # cast carried state to the backend's working dtype (a chain built
-    # for one backend may hand its f64/f32 state to the other)
-    env_init, sm_init = (jnp.asarray(s, work) for s in state)
-    if backend == "scan":
-        env, env_last = decaying_max_scan(d, k_rel, env_init)
-        e2, sm_last = onepole_scan(env, c_att, sm_init)
-    elif backend in ("pallas", "pallas_interpret"):
-        from xmtpu.kernels.envelope import envelope_pallas
-
-        e2, (env_last, sm_last) = envelope_pallas(
-            d, k_rel, c_att, init=(env_init, sm_init),
-            interpret=(backend == "pallas_interpret"),
-            block=envelope_block,
-        )
-    else:
-        raise ValueError(f"unknown limiter backend {backend!r}")
+    env_init, sm_init = (jnp.asarray(s, jnp.float64) for s in state)
+    env, env_last = decaying_max_scan(d, k_rel, env_init)
+    e2, sm_last = onepole_scan(env, c_att, sm_init)
     y = apply_gain_curve(xf, e2, threshold_db, knee_db, ceiling_db, ratio,
                          makeup_db)
     return y.astype(in_dtype), (env_last, sm_last)

@@ -20,9 +20,9 @@ Algorithm (BS.1770-4):
    power-mean of surviving blocks; integrated loudness = power-mean of
    the doubly-gated blocks.
 
-The TPU path computes block mean-squares from one cumulative sum
+The device path computes block mean-squares from one cumulative sum
 (O(n) elementwise + a strided gather — no per-block loops) and the
-K-weighting through the existing IIR machinery; gates are masked
+K-weighting through the float64 biquad scan; gates are masked
 reductions. ``measure_lufs_np`` is the float64 scipy oracle.
 """
 
@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import math
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -81,12 +80,10 @@ def _block_geometry(n: int, sr: int):
 def measure_lufs(x: jnp.ndarray, sr: int) -> jnp.ndarray:
     """Integrated loudness (LUFS) of ``x`` shaped (n,) or (ch, n).
 
-    jit-safe; K-weighting via the Pallas IIR kernel off-CPU (f32
-    sequential, exact enough for 0.001 LU) or interpret mode on CPU.
-    Silence (no block passes the absolute gate) returns -inf.
+    jit-safe; the K-weighting is the float64 biquad scan on every
+    platform. Silence (no block passes the absolute gate) returns -inf.
     """
-    from xmtpu.kernels.iir import sosfilt_pallas
-
+    from xmtpu.ops import biquad as _biquad
     from xmtpu.ops import convert as _convert
 
     x = jnp.asarray(x)
@@ -99,8 +96,8 @@ def measure_lufs(x: jnp.ndarray, sr: int) -> jnp.ndarray:
         x = x[None]
     n = x.shape[-1]
     sos = k_weighting_sos(sr)
-    interp = jax.devices()[0].platform == "cpu"
-    xw, _ = sosfilt_pallas(sos, x.astype(jnp.float32), interpret=interp)
+    xw, _ = _biquad.sosfilt_scan(sos, x.astype(jnp.float32),
+                                 state_dtype=jnp.float64)
 
     block, hop, nblk = _block_geometry(n, sr)
     cs = jnp.concatenate(

@@ -4,9 +4,9 @@ Reference analogue: the mixer C loops (``src/effects/mixer_effects/`` —
 ``mixer_mix``, ``fade_in/fade_out``, ``check_fade_in_out``, volume and
 normalization helpers [upstream, SURVEY.md §2.1]).
 
-TPU-native design: fades are piecewise-linear ramps computed **in the
-kernel from scalar parameters** (iota + clip), never materialized as
-HBM arrays (SURVEY.md §3.4); the whole mix is one fused elementwise
+Design: fades are piecewise-linear ramps computed **in the fused
+elementwise pass from scalar parameters** (iota + clip), never
+materialized as device arrays (SURVEY.md §3.4); the whole mix is one fused elementwise
 pass that XLA combines with the surrounding format conversions.
 
 Pinned ramp semantics (tested against the numpy oracle sample-by-sample):

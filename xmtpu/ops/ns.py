@@ -38,8 +38,8 @@ Pinned xmtpu semantics (mirrored by :func:`suppress_np`, the oracle):
    complex spectrum, phase untouched).
 
 Everything is batched FFTs + elementwise math + one tiny scan over
-frames — MXU/VPU-friendly, no Pallas needed (the FFT is the hot op and
-XLA owns it).
+frames — no hand-written kernel needed (the FFT is the hot op and XLA
+owns it).
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@ upstream used a SoX-derived algorithmic reverb; the rebuild pins reverb
 as **FIR convolution with an impulse response** per ``BASELINE.json:5,9``
 (0.5 s IR @ 48 kHz stereo is the headline config).
 
-TPU-native design: at 24k taps, FFT convolution beats time-domain by
-orders of magnitude (SURVEY.md §3.5); the whole-clip path is one
+Design: at 24k taps, FFT convolution beats time-domain by orders of
+magnitude (SURVEY.md §3.5); the whole-clip path is one
 ``jnp.fft.rfft``/``irfft`` pair in XLA, and the block path (streaming /
 fused pipeline) is overlap-add with a carried tail — the tail is the
 FIR analogue of IIR state for cross-block sequence decomposition
@@ -24,15 +24,14 @@ def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
-def fftconv_gp(block: int) -> int:
-    """Measured-optimal pair-group count for ``kernels/fftconv`` at
-    this overlap-save block size (round-3 chip sweep, BASELINE.md):
-    16 at 32768, 4 at 65536 (4.54 vs 4.90 ms at the config-3 shape),
-    1 above. Single source of truth for the block->gp table — shared
-    by ``batch._reverb_block`` and ``graph.fx._reverb_block_for`` so a
-    future sweep cannot update one chain and leave the other stale
-    (review find)."""
-    return {32768: 16, 65536: 4}.get(block, 1)
+def os_block(m: int) -> int:
+    """Overlap-save FFT block for an m-tap IR: the smallest power of two
+    >= 4*(m-1) (useful hop >= 3/4 of the block), floored at 32768.
+    Shared by the batch steps and the effect chains."""
+    b = 32768
+    while b < 4 * max(1, m - 1):
+        b *= 2
+    return b
 
 
 def trim_ir_tail(h: np.ndarray, rel: float = 1e-6) -> np.ndarray:
@@ -42,7 +41,7 @@ def trim_ir_tail(h: np.ndarray, rel: float = 1e-6) -> np.ndarray:
     default). Composed IRs (e.g. the LTI fold's h_eq (*) ir) can decay
     sooner than len(a)+len(b)-1, and an untrimmed tap count can push
     the overlap-save block past a power-of-two boundary the trimmed
-    one would not cross (review find) — shared by graph.fx._fold_lti
+    one would not cross — shared by graph.fx._fold_lti
     and batch._combined_ir so the two fold paths cannot drift."""
     h = np.asarray(h)
     tail = np.cumsum(np.abs(h[::-1]))[::-1]
@@ -56,8 +55,8 @@ def fir_convolve_full(x: jnp.ndarray, ir: jnp.ndarray) -> jnp.ndarray:
     """Full linear convolution of the last axis with a 1-D IR via FFT.
 
     ``x``: (..., n) float; ``ir``: (m,) float. Returns (..., n + m - 1)
-    in x.dtype. Compute is f32 (TPU FFT); measured headroom vs the f64
-    oracle is far below the -80 dB budget (see tests).
+    in x.dtype. Compute is f32 (f64 for f64 input); the headroom vs the
+    f64 oracle is far below the -80 dB budget (see tests).
     """
     n = x.shape[-1]
     m = ir.shape[-1]
@@ -73,9 +72,8 @@ def fir_convolve_os(x: jnp.ndarray, ir: jnp.ndarray, block: int = 65536):
     """Same-length causal convolution via overlap-save FFT blocks.
 
     Each block FFT is size ``block`` instead of next_pow2(n+m-1) —
-    ~30% fewer FFT flops at the headline shapes (and much less live
-    memory); the blocks stack into ONE batched FFT so the MXU/VPU sees
-    a single big op. Requires block > len(ir); falls back to the full
+    fewer FFT flops at the headline shapes (and much less live memory);
+    the blocks stack into ONE batched FFT. Requires block > len(ir); falls back to the full
     transform otherwise. Output matches :func:`fir_convolve_full`[:n]
     to f32 rounding (tested).
     """
@@ -105,66 +103,19 @@ def fir_convolve_os(x: jnp.ndarray, ir: jnp.ndarray, block: int = 65536):
 
 def reverb(
     x: jnp.ndarray, ir: jnp.ndarray, wet: float = 0.3, dry: float = 0.7,
-    block: int | None = None, backend: str = "xla", precision=None,
-    gp: int | None = None, interpret: bool = False, prescale=None,
-    pre_row=None, pre_col=None, trim: bool = True,
+    block: int | None = None, prescale=None,
 ) -> jnp.ndarray:
     """Wet/dry reverb, output length == input length (tail truncated —
     the reference's same-length PCM-in/PCM-out convention).
 
-    ``block``: use overlap-save FFT blocks of this size (perf option;
-    None = one full-size transform). ``backend``: "xla" (jnp.fft),
-    "mxu" (four-step matmul DFTs on the systolic array via XLA einsums
-    — measured 1.2-1.5x the XLA FFT at the BASELINE shapes), or
-    "pallas" (kernels/fftconv.py: the whole DFT pipeline VMEM-resident
-    — measured a further 1.9-3.4x over "mxu", which is HBM-bound on
-    stage intermediates). "mxu"/"pallas" require a host-known numpy
-    ``ir`` and a power-of-two ``block``; ``gp``/``interpret`` thread
-    through to the Pallas kernel.
+    ``block``: use overlap-save FFT blocks of this size (None = one
+    full-size transform). The FFTs are XLA's (cuFFT on the GPU).
 
     ``prescale``: broadcastable gain applied to the INPUT by linearity
     — ``reverb(s*x) == s*reverb(x)`` exactly, so the multiply rides the
-    post-convolution wet/dry combine (one fused elementwise pass)
-    instead of materializing ``s*x`` to HBM in front of an opaque
-    Pallas call. The batch chain folds its peak-normalize gain here
-    (round-3 front-end roofline work).
-
-    ``pre_row``/``pre_col`` (pallas backend only): batch-shaped /
-    per-sample input gains applied IN-KERNEL on the tile load —
-    ``reverb(pre_row[..., None] * pre_col * x)`` with zero extra HBM
-    passes. Unlike ``prescale`` the per-sample ``pre_col`` does NOT
-    commute with the convolution, so it must (and does) scale the
-    input side; the batch chain's fade ramp rides here."""
+    post-convolution wet/dry combine (one fused elementwise pass)."""
     n = x.shape[-1]
-    if not trim and (backend != "pallas" or dry != 0.0):
-        raise ValueError("trim=False requires backend='pallas', dry=0")
-    # engine-specific knobs must not be silently dropped: a perf probe
-    # that typos the backend would measure the wrong configuration and
-    # report success (the bench.py unknown-arg fix's failure mode;
-    # review find — pre_row/pre_col below already refused typed)
-    if backend != "pallas" and (gp is not None or interpret):
-        raise ValueError(
-            f"gp/interpret apply to backend='pallas' only, got "
-            f"backend={backend!r}")
-    if precision is not None and backend != "mxu":
-        raise ValueError(
-            f"precision applies to backend='mxu' only, got "
-            f"backend={backend!r}")
-    if backend == "pallas":
-        from xmtpu.kernels.fftconv import fir_convolve_os_pallas
-
-        w = fir_convolve_os_pallas(x, np.asarray(ir), block or 65536,
-                                   gp=gp, interpret=interpret,
-                                   pre_row=pre_row, pre_col=pre_col,
-                                   trim=trim)
-    elif pre_row is not None or pre_col is not None:
-        raise ValueError("pre_row/pre_col require backend='pallas'")
-    elif backend == "mxu":
-        from xmtpu.ops.fftmm import fir_convolve_os_mxu
-
-        w = fir_convolve_os_mxu(x, np.asarray(ir), block or 16384,
-                                precision=precision)
-    elif block is not None:
+    if block is not None:
         w = fir_convolve_os(x, ir, block)
     else:
         w = fir_convolve_full(x, ir)[..., :n]

@@ -1,5 +1,5 @@
 """Batch runner: many clips through the fused pipeline (config 4,
-BASELINE.json:10 — "256 podcast clips ... on one TPU chip").
+BASELINE.json:10 — "256 podcast clips ... on one chip").
 
 Reference analogue: there is none — the C library is invoked once per
 clip by the caller [upstream, SURVEY.md §2.2]; the batch axis IS the
@@ -80,9 +80,9 @@ class BatchReport:
 
 def _peak_hbm_bytes() -> int | None:
     """Best-effort device peak-memory reading. Only consults an
-    ALREADY-initialized backend (probing an unreachable remote hangs
-    minutes in init); TPU runtimes report ``peak_bytes_in_use``,
-    XLA:CPU returns no stats."""
+    ALREADY-initialized backend (never initializes one just to read
+    stats); GPU runtimes report ``peak_bytes_in_use``, XLA:CPU returns
+    no stats."""
     try:
         from jax._src import xla_bridge
 
@@ -199,7 +199,7 @@ def run_batch(
         raise ConfigError(f"decode_threads must be >= 1, got {decode_threads}")
     # whole-run rates fail the RUN, typed, before any decode: a negative
     # or zero --rate used to reach filter design / WAV headers, and a
-    # huge bus-side ratio hung the remote compiler (review find)
+    # huge bus-side ratio stalled the compiler
     from xmtpu.ops.resample import check_rates
 
     check_rates(sr_in, sr_bus)
@@ -274,9 +274,8 @@ def run_batch(
 
 
 _STEP_CACHE: dict = {}  # module-level: repeat run_batch calls (a service
-# processing manifests) reuse compiled executables — the remote TPU
-# compiler has no persistent cache, so re-jitting per call would pay
-# the full compile every time
+# processing manifests) reuse compiled executables instead of re-tracing
+# a fresh jit closure per call
 
 
 class _Dispatcher:
